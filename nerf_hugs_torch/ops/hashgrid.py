@@ -1,0 +1,301 @@
+"""Multiresolution hash-grid encoding (instant-ngp), tcnn grid.h semantics.
+
+Twin of nerf_hugs_tpu/ops/hashgrid.py. Semantics are tiny-cuda-nn's:
+  * scale_l = base * g^l - 1, N_l = ceil(scale_l) + 1;
+  * grid coordinate = x * scale_l + 0.5, trilinear weights from its
+    fractional part;
+  * per-level compact tables: min(N_l^d, 2^log2) rows rounded up to a
+    multiple of 8; dense strides N_l^d (wrapped modulo the level size)
+    while N_l^d fits the cap, else the xor hash (primes 1 / 2654435761 /
+    805459861) or the additive variant (`hash_impl='add'`), masked to 2^log2.
+
+Parameters are ONE flat fp32 table per encoding, the levels concatenated in
+tcnn's order ([num_rows * F], feature-minor), so a kernel takes one pointer
+and per-level row offsets. Features come out level-major, feature-minor:
+[..., L*F].
+
+On CUDA tensors the encode runs the hand-written kernels of
+csrc/hashgrid.cu (forward here, table gradient in ops/hashgrid_bwd.py)
+joined by one autograd.Function; on CPU tensors the same Function runs
+their plain PyTorch versions. Positions get no gradient, as in the JAX
+custom VJP: every caller feeds sample positions drawn without gradient.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from nerf_hugs_torch.ops import kernels
+
+_PRIMES = (1, 2654435761, 805459861)
+
+
+def level_scales(num_levels: int, base_res: int, max_res: int) -> np.ndarray:
+    """tcnn's per-level grid scale: scale_l = base * growth^l - 1."""
+    if num_levels == 1:
+        growth = 1.0
+    else:
+        growth = np.exp((np.log(max_res) - np.log(base_res))
+                        / (num_levels - 1))
+    return (base_res * growth ** np.arange(num_levels) - 1.0).astype(
+        np.float32)
+
+
+def level_resolutions(num_levels: int, base_res: int, max_res: int
+                      ) -> np.ndarray:
+    """tcnn's N_l = ceil(scale_l) + 1 (grid.h `grid_resolution`)."""
+    scales = level_scales(num_levels, base_res, max_res)
+    return (np.ceil(scales.astype(np.float64)) + 1).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashGridSpec:
+    num_levels: int = 16
+    features_per_level: int = 2
+    log2_hashmap_size: int = 19
+    base_res: int = 16
+    max_res: int = 2048
+    num_dims: int = 3
+    # 'xor' is tcnn-exact; 'add' is the additive hash of the *_addhash
+    # configs. They are different functions of the same parameters.
+    hash_impl: str = "xor"
+
+    def __post_init__(self):
+        if self.hash_impl not in ("xor", "add"):
+            raise ValueError(f"hash_impl must be 'xor' or 'add', got "
+                             f"{self.hash_impl!r}")
+
+    @property
+    def table_size(self) -> int:
+        """Hashed-level table size (the 2^log2 cap)."""
+        return 1 << self.log2_hashmap_size
+
+    @property
+    def scales(self) -> np.ndarray:
+        return level_scales(self.num_levels, self.base_res, self.max_res)
+
+    @property
+    def resolutions(self) -> np.ndarray:
+        return level_resolutions(self.num_levels, self.base_res, self.max_res)
+
+    @property
+    def level_sizes(self) -> np.ndarray:
+        """Per-level rows: min(N_l^d, 2^log2) rounded up to a multiple of 8."""
+        dense_size = self.resolutions.astype(np.int64) ** self.num_dims
+        sizes = np.minimum(dense_size, self.table_size)
+        return -(-sizes // 8) * 8
+
+    @property
+    def level_offsets(self) -> np.ndarray:
+        """First row of each level in the concatenated table (multiples
+        of 8, since every level size is)."""
+        return np.concatenate([[0], np.cumsum(self.level_sizes)[:-1]])
+
+    @property
+    def output_dim(self) -> int:
+        return self.num_levels * self.features_per_level
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.level_sizes.sum())
+
+    def corner_offsets(self) -> np.ndarray:
+        """[2^d, d] binary corner offsets, dim 0 most significant."""
+        d = self.num_dims
+        return np.stack(np.meshgrid(*([np.arange(2)] * d), indexing="ij"),
+                        axis=-1).reshape(-1, d)
+
+    def dense_level(self) -> np.ndarray:
+        """Per level: dense indexing while N_l^d entries fit the cap."""
+        return (self.resolutions.astype(np.int64) ** self.num_dims
+                <= self.table_size)
+
+    def level_multipliers(self) -> np.ndarray:
+        """[L, d] per-dim index multipliers: N_l^d on dense levels, the
+        tcnn primes on hashed ones."""
+        res = self.resolutions.astype(np.int64)
+        dense = self.dense_level()
+        mult = np.empty((self.num_levels, self.num_dims), np.int64)
+        for d in range(self.num_dims):
+            mult[:, d] = np.where(dense, res ** d, _PRIMES[d % len(_PRIMES)])
+        return mult
+
+
+def level_table(spec: HashGridSpec) -> np.ndarray:
+    """[L, 8] int32 per-level constants for the kernels (csrc LevelRow):
+    scale bits, three multipliers, rows, row offset, dense flag, pad."""
+    if spec.num_dims > 3:
+        raise ValueError("the kernels take at most 3 dims")
+    tab = np.zeros((spec.num_levels, 8), np.uint32)
+    tab[:, 0] = spec.scales.astype(np.float32).view(np.uint32)
+    tab[:, 1:1 + spec.num_dims] = spec.level_multipliers() % (1 << 32)
+    tab[:, 4] = spec.level_sizes
+    tab[:, 5] = spec.level_offsets
+    tab[:, 6] = spec.dense_level()
+    return tab.view(np.int32)
+
+
+_LEVEL_TABLES: Dict[Tuple[HashGridSpec, torch.device], torch.Tensor] = {}
+
+
+def device_level_table(spec: HashGridSpec, device) -> torch.Tensor:
+    key = (spec, torch.device(device))
+    if key not in _LEVEL_TABLES:
+        _LEVEL_TABLES[key] = torch.from_numpy(level_table(spec)).to(device)
+    return _LEVEL_TABLES[key]
+
+
+def corner_rows_level(spec: HashGridSpec, pos: torch.Tensor, lvl: int):
+    """Level-local corner rows and trilinear weights of [n, d] positions:
+    ([2^d, n] int64 in [0, T_l), [2^d, n] float32), in corner_offsets
+    order. Integer math in int64 keeps the low 32 bits of tcnn's uint32
+    products, which is all the mask or the dense wrap reads."""
+    d_dims = spec.num_dims
+    x = pos * float(spec.scales[lvl]) + 0.5
+    x0f = torch.floor(x)
+    frac = x - x0f
+    x0 = x0f.long()
+    mult = spec.level_multipliers()[lvl]
+    dense = bool(spec.dense_level()[lvl])
+    additive = dense or spec.hash_impl == "add"
+    size = int(spec.level_sizes[lvl])
+    rows, weights = [], []
+    for c in spec.corner_offsets():
+        idx, w = None, None
+        for d in range(d_dims):
+            t = (x0[:, d] + int(c[d])) * int(mult[d])
+            wd = frac[:, d] if c[d] else 1.0 - frac[:, d]
+            if d == 0:
+                idx, w = t, wd
+            else:
+                idx = idx + t if additive else torch.bitwise_xor(idx, t)
+                w = w * wd
+        if dense:
+            idx = torch.where(idx >= size, idx - size, idx)
+        else:
+            idx = torch.bitwise_and(idx, spec.table_size - 1)
+        rows.append(idx)
+        weights.append(w)
+    return torch.stack(rows), torch.stack(weights)
+
+
+def hashgrid_encode_plain(table: torch.Tensor, positions: torch.Tensor,
+                          spec: HashGridSpec) -> torch.Tensor:
+    """Plain PyTorch encode: [..., d] positions in [0, 1] -> [..., L*F].
+
+    Differentiable in the table through indexing; the corners accumulate
+    in the kernel's order."""
+    lead = positions.shape[:-1]
+    pos = positions.reshape(-1, spec.num_dims)
+    f = spec.features_per_level
+    tab = table.view(-1, f)
+    offsets = spec.level_offsets
+    outs = []
+    for lvl in range(spec.num_levels):
+        rows, weights = corner_rows_level(spec, pos, lvl)
+        acc = torch.zeros(pos.shape[0], f, dtype=table.dtype,
+                          device=table.device)
+        for c in range(rows.shape[0]):
+            acc = acc + weights[c][:, None] * tab[rows[c] + int(offsets[lvl])]
+        outs.append(acc)
+    return torch.stack(outs, dim=1).reshape(lead + (spec.output_dim,))
+
+
+def check_kernel_args(spec: HashGridSpec, **tensors: torch.Tensor) -> None:
+    """Device, dtype, contiguity and layout checks shared by the wrappers."""
+    device = None
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor with the others")
+        if device is not None and t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        device = t.device
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if spec.features_per_level != 2:
+        raise ValueError("the kernels take features_per_level == 2")
+    if spec.num_dims != 3:
+        raise ValueError("the kernels take 3 dims (the 2-D grids of the "
+                         "HA-NeRF mask are not ported)")
+    if spec.num_rows >= 1 << 31:
+        raise ValueError("table rows must fit int32")
+
+
+def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
+                 spec: HashGridSpec) -> torch.Tensor:
+    """Encode without autograd: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if not table.is_cuda and not positions.is_cuda:
+        with torch.no_grad():
+            return hashgrid_encode_plain(table, positions, spec)
+    check_kernel_args(spec, table=table, positions=positions)
+    if table.numel() != spec.num_rows * spec.features_per_level:
+        raise ValueError(f"table has {table.numel()} values, spec needs "
+                         f"{spec.num_rows * spec.features_per_level}")
+    if positions.shape[-1] != spec.num_dims:
+        raise ValueError(f"positions must end in {spec.num_dims} dims")
+    lead = positions.shape[:-1]
+    n = positions.numel() // spec.num_dims
+    out = torch.empty(lead + (spec.output_dim,), dtype=torch.float32,
+                      device=table.device)
+    levels = device_level_table(spec, table.device)
+    lib = kernels.load()
+    with torch.cuda.device(table.device):
+        status = lib.hashgrid_fwd(
+            table.data_ptr(), positions.data_ptr(), out.data_ptr(), n,
+            spec.num_levels, spec.num_dims, spec.table_size - 1,
+            int(spec.hash_impl == "add"), levels.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "hashgrid_fwd")
+    if n:
+        hashgrid_fwd.launches += 1
+    return out
+
+
+hashgrid_fwd.launches = 0
+
+
+class _HashGridEncode(torch.autograd.Function):
+    """Forward kernel + table-gradient kernel; no position gradient."""
+
+    @staticmethod
+    def forward(ctx, table, positions, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(positions)
+        return hashgrid_fwd(table, positions, spec)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from nerf_hugs_torch.ops import hashgrid_bwd
+        (positions,) = ctx.saved_tensors
+        grad_table = hashgrid_bwd.hashgrid_table_grad(
+            positions, grad.contiguous(), ctx.spec)
+        return grad_table, None, None
+
+
+def hashgrid_encode(table: torch.Tensor, positions: torch.Tensor,
+                    spec: HashGridSpec) -> torch.Tensor:
+    """Encode [..., d] positions in [0, 1]^d -> [..., L*F] features, with
+    the table gradient from the scatter kernel (or its plain version)."""
+    return _HashGridEncode.apply(table, positions, spec)
+
+
+class HashGridEncoding(nn.Module):
+    """Owns one flat table parameter, uniform(-1e-4, 1e-4) like tcnn."""
+
+    def __init__(self, spec: HashGridSpec, generator: torch.Generator):
+        super().__init__()
+        self.spec = spec
+        self.table = nn.Parameter(
+            torch.empty(spec.num_rows * spec.features_per_level).uniform_(
+                -1e-4, 1e-4, generator=generator))
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        return hashgrid_encode(self.table, positions, self.spec)

@@ -1,0 +1,70 @@
+"""Hash-grid table gradient: a scatter-add of weighted corner contributions.
+
+Twin of nerf_hugs_tpu/ops/hashgrid_bwd.py, which sorts the 2^d * n corner
+entries by row and segment-sums them with one-hot matmuls, a TPU
+workaround for its slow scatter. Here the CUDA kernel (csrc/hashgrid.cu,
+`hashgrid_bwd`) recomputes each sample's corner rows and weights from the
+positions and adds w * dL/dfeature into the fp32 gradient with float2
+atomics; the plain version does the same with `index_add_`.
+
+The payload stays fp32: this is the JAX package's `bwd_dtype='float32'`
+mode, not its bf16 default (ROADMAP.md Queue 3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nerf_hugs_torch.ops import kernels
+from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_kernel_args,
+                                          corner_rows_level,
+                                          device_level_table)
+
+
+def hashgrid_table_grad_plain(positions: torch.Tensor, grad_out: torch.Tensor,
+                              spec: HashGridSpec) -> torch.Tensor:
+    """Plain PyTorch table gradient: [..., d] positions and [..., L*F]
+    output gradients -> flat [num_rows * F] table gradient."""
+    f = spec.features_per_level
+    pos = positions.reshape(-1, spec.num_dims)
+    g = grad_out.reshape(-1, spec.num_levels, f).float()
+    out = torch.zeros(spec.num_rows, f, dtype=torch.float32,
+                      device=positions.device)
+    offsets = spec.level_offsets
+    for lvl in range(spec.num_levels):
+        rows, weights = corner_rows_level(spec, pos, lvl)        # [2^d, n]
+        vals = weights[..., None] * g[None, :, lvl, :]           # [2^d, n, F]
+        out.index_add_(0, (rows + int(offsets[lvl])).reshape(-1),
+                       vals.reshape(-1, f))
+    return out.reshape(-1)
+
+
+def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
+                        spec: HashGridSpec) -> torch.Tensor:
+    """Table gradient: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if not positions.is_cuda and not grad_out.is_cuda:
+        return hashgrid_table_grad_plain(positions, grad_out, spec)
+    check_kernel_args(spec, positions=positions, grad_out=grad_out)
+    n = positions.numel() // spec.num_dims
+    if positions.shape[-1] != spec.num_dims \
+            or grad_out.numel() != n * spec.output_dim:
+        raise ValueError(f"positions {tuple(positions.shape)} and grad_out "
+                         f"{tuple(grad_out.shape)} do not match the spec")
+    grad_table = torch.zeros(spec.num_rows * spec.features_per_level,
+                             dtype=torch.float32, device=positions.device)
+    levels = device_level_table(spec, positions.device)
+    lib = kernels.load()
+    with torch.cuda.device(positions.device):
+        status = lib.hashgrid_bwd(
+            positions.data_ptr(), grad_out.data_ptr(), grad_table.data_ptr(),
+            n, spec.num_levels, spec.num_dims, spec.table_size - 1,
+            int(spec.hash_impl == "add"), levels.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "hashgrid_bwd")
+    if n:
+        hashgrid_table_grad.launches += 1
+    return grad_table
+
+
+hashgrid_table_grad.launches = 0
