@@ -66,9 +66,12 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         self.pixtocams: np.ndarray = None
         self.distortion_params: Optional[List] = None
         self.camtypes: Optional[List] = None
+        self.image_names: Optional[List[str]] = None
         self._load_renderings(config)
 
         self._n_examples = self.camtoworlds.shape[0]
+        if self.image_names is None:
+            self.image_names = [f"{i:03d}" for i in range(self._n_examples)]
         self.cameras = (self.pixtocams, self.camtoworlds, None)
 
         # The native sampler gathers fixed 3-float rgb rows from cameras
@@ -106,6 +109,10 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
     @property
     def size(self) -> int:
         return self._n_examples
+
+    def image_name(self, cam_idx: int) -> str:
+        """The image's file stem (eval --original_name)."""
+        return self.image_names[cam_idx]
 
     @abc.abstractmethod
     def _load_renderings(self, config):

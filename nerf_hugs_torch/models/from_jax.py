@@ -10,6 +10,10 @@ NerfactoModel.state_dict() of this package:
                                             nerf_hugs_tpu/models/
                                             torch_compat.py::_dense)
   {..}/{mlp}/Dense_k/bias                -> {..}.{mlp}.layers.k.bias
+  {..}/{mlp}/w_i [in, out]               -> {..}.{mlp}.w_i, as it is (the
+                                            bias-free fused MLP keeps the
+                                            flax layout)
+A module holds Dense_k layers or w_i weights, never both.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 _TABLE_RE = re.compile(r"^table_(\d+)$")
 _DENSE_RE = re.compile(r"^Dense_(\d+)$")
+_FUSED_RE = re.compile(r"^w_(\d+)$")
 
 
 def convert_nerfacto_params(flax_params: Dict[str, Any]
@@ -41,6 +46,13 @@ def convert_nerfacto_params(flax_params: Dict[str, Any]
                                      "table_0..table_{L-1}")
                 state[f"{top}.hashgrid.table"] = as_tensor(np.concatenate(
                     [np.asarray(v).reshape(-1) for _, v in levels]))
+                continue
+            if any(_FUSED_RE.match(k) for k in leaf):
+                if not all(_FUSED_RE.match(k) for k in leaf):
+                    raise ValueError(f"flax module {top}/{name} mixes fused "
+                                     f"w_i weights with {sorted(leaf)}")
+                for k, w in leaf.items():
+                    state[f"{top}.{name}.{k}"] = as_tensor(w)
                 continue
             for dense, p in leaf.items():
                 m = _DENSE_RE.match(dense)

@@ -11,12 +11,12 @@ deterministic path. renderings holds the final level only; ray_history
 every level's {sdist, weights, density} for the interlevel loss.
 
 Module and parameter names mirror the flax tree (field/hashgrid,
-field/mlp_base/Dense_k -> field.mlp_base.layers.k, proposal_i/...), so
-models/from_jax.py maps one onto the other.
+field/mlp_base/Dense_k -> field.mlp_base.layers.k, field/mlp_base/w_i ->
+field.mlp_base.w_i, proposal_i/...), so models/from_jax.py maps one onto
+the other.
 
 Not ported yet (each raises NotImplementedError): appearance and transient
-embeddings, the NeRF-W transient head, HA-NeRF's implicit mask and the
-fused MLP (enable_tcnn_mlp).
+embeddings, the NeRF-W transient head and HA-NeRF's implicit mask.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from torch.nn import functional as F
 
 from nerf_hugs_tpu.configs import config as cfg
 from nerf_hugs_torch.core import coord, render, stepfun
+from nerf_hugs_torch.ops.fused_mlp import FusedMLP, fused_mlp
 from nerf_hugs_torch.ops.hashgrid import HashGridEncoding, HashGridSpec
 from nerf_hugs_torch.ops.sh import sh_encode
 from nerf_hugs_torch.utils import structs
@@ -55,17 +56,30 @@ def trunc_exp(x: torch.Tensor) -> torch.Tensor:
 
 
 class _ReluMLP(nn.Module):
-    """ReLU MLP with biases: flax Dense(dtype=compute_dtype) layers with
-    fp32 parameters. Inputs, weights and biases are cast to the compute
-    dtype (bf16 under enable_amp) inside every layer, as flax promotes
-    them; the result stays in the compute dtype."""
+    """ReLU MLP with the two paths of the reference's enable_tcnn_mlp
+    switch (nerf_hugs_tpu/models/nerfacto.py:65-103):
+      fused=False: flax Dense(dtype=compute_dtype) layers with biases and
+        fp32 parameters; inputs, weights and biases are cast to the compute
+        dtype (bf16 under enable_amp) inside every layer, as flax promotes
+        them, and the result stays in the compute dtype;
+      fused=True: bias-free fp32 weights w_i [d_in, d_out] (the flax
+        layout), cast to the compute dtype and run through the fused MLP
+        (the CUDA kernel on the card), which rounds to the compute dtype
+        after every layer."""
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int,
                  out_dim: int, compute_dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, fused: bool = False):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         self.compute_dtype = compute_dtype
+        self.fused = fused
+        self.out_dim = out_dim
+        if fused:
+            self.num_weights = len(dims) - 1
+            for i, w in enumerate(FusedMLP(dims).init(generator)):
+                self.register_parameter(f"w_{i}", nn.Parameter(w))
+            return
         self.layers = nn.ModuleList()
         for d_in, d_out in zip(dims[:-1], dims[1:]):
             lin = nn.Linear(d_in, d_out)
@@ -78,6 +92,12 @@ class _ReluMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
+        if self.fused:
+            lead = x.shape[:-1]
+            flat = x.reshape(-1, x.shape[-1]).to(cdt)
+            weights = [getattr(self, f"w_{i}").to(cdt)
+                       for i in range(self.num_weights)]
+            return fused_mlp(flat, weights).reshape(lead + (self.out_dim,))
         x = x.to(cdt)
         for i, lin in enumerate(self.layers):
             x = F.linear(x, lin.weight.to(cdt), lin.bias.to(cdt))
@@ -110,7 +130,7 @@ class NerfactoField(nn.Module):
 
     def __init__(self, nc: cfg.NerfactoConfig, bound: float,
                  contraction: bool, compute_dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, fused_ok: bool = False):
         super().__init__()
         self.bound, self.contraction = bound, contraction
         self.compute_dtype = compute_dtype
@@ -121,9 +141,9 @@ class NerfactoField(nn.Module):
         self.hashgrid = HashGridEncoding(spec, generator)
         self.mlp_base = _ReluMLP(spec.output_dim, nc.hidden_dim, 2,
                                  1 + nc.geo_feat_dim, compute_dtype,
-                                 generator)
+                                 generator, fused=fused_ok)
         self.mlp_head = _ReluMLP(16 + nc.geo_feat_dim, nc.hidden_dim_color, 3,
-                                 3, compute_dtype, generator)
+                                 3, compute_dtype, generator, fused=fused_ok)
 
     def forward(self, positions, viewdirs):
         grid_pos, selector = _normalize_positions(positions, self.bound,
@@ -147,7 +167,8 @@ class HashMLPDensityField(nn.Module):
         spec = _grid_spec(args)
         self.hashgrid = HashGridEncoding(spec, generator)
         self.mlp_base = _ReluMLP(spec.output_dim, args.get("hidden_dim", 64),
-                                 2, 1, compute_dtype, generator)
+                                 2, 1, compute_dtype, generator,
+                                 fused=args.get("enable_tcnn_mlp", False))
 
     def forward(self, positions):
         grid_pos, selector = _normalize_positions(positions, self.bound,
@@ -163,9 +184,6 @@ def _unsupported(config) -> Optional[str]:
         return "appearance/transient embeddings"
     if config.transient_type in ("nerfw", "hanerf"):
         return f"the {config.transient_type} heads"
-    if nc.enable_tcnn_mlp or any(dict(a).get("enable_tcnn_mlp", False)
-                                 for a in nc.proposal_net_args_list):
-        return "the fused MLP (enable_tcnn_mlp, ROADMAP.md Queue 2 #2)"
     return None
 
 
@@ -186,7 +204,10 @@ class NerfactoModel(nn.Module):
         contraction = config.enable_scene_contraction
         bound = float(config.bound)
         cdt = torch.bfloat16 if config.enable_amp else torch.float32
-        self.field = NerfactoField(nc, bound, contraction, cdt, generator)
+        # The field follows the top-level switch; each proposal net its
+        # own proposal_net_args_list entry's (JAX nerfacto.py:259, 272, 283).
+        self.field = NerfactoField(nc, bound, contraction, cdt, generator,
+                                   fused_ok=nc.enable_tcnn_mlp)
         self.prop_nets: List[HashMLPDensityField] = []
         if nc.use_same_proposal_network:
             if len(nc.proposal_net_args_list) != 1:

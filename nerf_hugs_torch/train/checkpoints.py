@@ -2,7 +2,9 @@
 
 Twin of nerf_hugs_tpu/train/checkpoints.py: {dir}/checkpoint_{step}.pt
 holds the step and the state of the model, the Adam optimizer and its
-learning-rate schedule; the newest step is restored on resume.
+learning-rate schedule; the newest step is restored on resume, and eval
+restores the model alone from the newest checkpoint, preferring the
+finetune stage's {dir}/finetune/.
 model_compat.json records the model-function choices (hash_impl) that a
 restore cannot detect from the parameter shapes.
 """
@@ -12,7 +14,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -107,3 +109,28 @@ def restore_checkpoint(directory: str, model: torch.nn.Module, optimizer,
     optimizer.load_state_dict(state["optimizer"])
     scheduler.load_state_dict(state["scheduler"])
     return int(state["step"])
+
+
+def restore_params(directory: str, model: torch.nn.Module,
+                   step: Optional[int] = None) -> Optional[int]:
+    """Load only the model of the newest (or the given) checkpoint, as the
+    eval path needs (no optimizer state); returns its step, or None when
+    there is none."""
+    if step is None:
+        step = latest_step(directory)
+    if step is None:
+        return None
+    device = next(model.parameters()).device
+    state = torch.load(checkpoint_path(directory, step), map_location=device,
+                       weights_only=True)
+    model.load_state_dict(state["model"])
+    return int(state["step"])
+
+
+def pick_eval_checkpoint(directory: str) -> Tuple[bool, Optional[int]]:
+    """(use_finetune, step) of the checkpoint eval restores: the newest
+    finetune checkpoint when {directory}/finetune/ has one, else the newest
+    train checkpoint (step None when there is none)."""
+    ft_dir = os.path.join(directory, "finetune")
+    use_ft = latest_step(ft_dir) is not None
+    return use_ft, latest_step(ft_dir if use_ft else directory)

@@ -6,8 +6,9 @@
 Keeps the loop of the repo's train.py (nerfacto yaml dialect, train stage):
 early_exit_steps, print_every lines with steps/s and rays/s, step-numbered
 checkpoints with the model-compat sidecar, resume from the newest
-checkpoint, and the in-train eval window, which reports PSNR. The finetune
-stage, SSIM/LPIPS and tensorboard summaries wait (ROADMAP.md Queue 1).
+checkpoint, and the in-train eval window, which reports PSNR and SSIM
+through the MetricHarness. The finetune stage and tensorboard summaries
+wait (ROADMAP.md Queue 1).
 Every printed line also lands in {save_dir}/run_log.log.
 """
 
@@ -22,10 +23,10 @@ import time
 import numpy as np
 import torch
 
-from nerf_hugs_tpu.configs import config as cfg
 from nerf_hugs_tpu.configs import yaml_loader
 from nerf_hugs_tpu.utils.record import Recorder
 from nerf_hugs_torch.data import load_dataset
+from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models.nerfacto import NerfactoModel
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
@@ -55,20 +56,21 @@ def eval_window_indices(event: int, dataset_size: int,
     return [(base + i) % dataset_size for i in range(n_eval)]
 
 
-def _eval_psnr(model, test_dataset, window, train_frac, config, device):
-    """Mean PSNR of the clipped renders over the window's test images."""
-    psnrs = []
+def _eval_metrics(model, test_dataset, window, train_frac, config, device,
+                  harness) -> dict:
+    """Mean metrics (psnr, ssim) of the clipped renders over the window's
+    test images, against the GT composited over the test background."""
+    per_image = []
     for idx in window:
         batch = test_dataset.generate_ray_batch(idx)
         rgb = np.clip(render_image(model, batch.rays, train_frac, config,
                                    device)["rgb"], 0, 1)
-        gt = np.asarray(batch.rgb, np.float32)
-        if gt.shape[-1] == 4:
-            bg = cfg.BACKGROUND_VALUES[config.test_background_color]
-            gt = gt[..., :3] * gt[..., 3:] + bg * (1.0 - gt[..., 3:])
-        mse = float(np.mean((rgb - gt[..., :3]) ** 2))
-        psnrs.append(-10.0 * np.log10(mse))
-    return float(np.mean(psnrs))
+        gt = nh_image.composite_alpha(
+            np.asarray(batch.rgb, np.float32),
+            nh_image.BACKGROUND_VALUES[config.test_background_color])
+        per_image.append(harness(rgb, gt))
+    return {k: float(np.mean([m[k] for m in per_image]))
+            for k in per_image[0]}
 
 
 def load_config(path: str, data_dir: str, save_dir: str):
@@ -101,6 +103,7 @@ def main(argv=None):
 
     test_dataset = load_dataset("test", config.data_dir, config,
                                 is_training=False)
+    harness = nh_image.MetricHarness(device=device)
     model = NerfactoModel(config, device,
                           torch.Generator().manual_seed(config.seed))
     optimizer, scheduler = step_lib.create_optimizer(config, model)
@@ -151,9 +154,10 @@ def main(argv=None):
                 event += 1
             window = eval_window_indices(event, test_dataset.size,
                                          config.eval_images_num)
-            psnr = _eval_psnr(model, test_dataset, window, train_frac, config,
-                              device)
-            recorder.print(f"[train] {step}: eval psnr={psnr:.4f}")
+            metrics = _eval_metrics(model, test_dataset, window, train_frac,
+                                    config, device, harness)
+            recorder.print(f"[train] {step}: eval " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()))
             start = time.time()
     recorder.print("training complete")
     recorder.close()

@@ -9,7 +9,6 @@ The finetune stage waits (ROADMAP.md Queue 1 item 8).
 from __future__ import annotations
 
 import functools
-import math
 from collections import defaultdict
 from typing import Callable, Dict, Iterable, Optional
 
@@ -18,6 +17,7 @@ import torch
 
 from nerf_hugs_torch.core import math as nh_math
 from nerf_hugs_torch.losses import zoo
+from nerf_hugs_torch.metrics.image import mse_to_psnr
 
 
 def create_adam(params: Iterable[torch.nn.Parameter],
@@ -78,11 +78,6 @@ def clip_gradients(grads: Dict[str, Optional[torch.Tensor]], config):
             gs = [g * mult for g in gs]
         out.update(zip(keys, gs))
     return out
-
-
-def mse_to_psnr(mse):
-    """PSNR for max pixel value 1."""
-    return -10.0 / math.log(10.0) * torch.log(mse)
 
 
 def compute_loss(model, batch, train_frac: float, config,

@@ -125,7 +125,8 @@ def test_render_image_is_chunk_invariant():
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax"}
 ALLOWED_TPU_MODULES = {
     "nerf_hugs_tpu.configs.config", "nerf_hugs_tpu.configs.yaml_loader",
-    "nerf_hugs_tpu.data.native_sampler", "nerf_hugs_tpu.utils.record"}
+    "nerf_hugs_tpu.data.native_sampler", "nerf_hugs_tpu.utils.io",
+    "nerf_hugs_tpu.utils.record"}
 
 
 def _imported_modules(path):
