@@ -31,8 +31,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      proposal, then `nerf_hugs_torch.eval.main` on its checkpoint (2 test
      images of 256x256, 4 render chunks each) with the fused-MLP and
      hash-grid launch counters read around the eval, then the scoring CLI
-     over the test_preds/ PNGs the eval wrote.
-The last two lines are the kernels' JSON record and the result line.
+     over the test_preds/ PNGs the eval wrote;
+  8. the planar-accumulate kernel against its plain version on the gathers
+     of n = 2^21 samples from dense levels of 81^3 and 127^3 rows, and on a
+     ragged span of them (within 1e-5 absolute), with timings, then the
+     microbenchmark `nerf_hugs_torch.tools.bench_fwd_copies` through its
+     entry point at n = 2^21, with the kernel's launch counter read around
+     it.
+Beside each timed kernel it prints its bound: the least time the card could
+take, the larger of the bytes it must move (each input read once, each
+output written once) over the memory rate and its operations over the peak
+rate for their type (H100 SXM data sheet), and, where one PyTorch call
+computes the same function, that call's time. The last two lines are the
+kernels' JSON record and the result line.
 """
 
 from __future__ import annotations
@@ -58,6 +69,12 @@ FUSED_SHAPES = (("proposal mlp_base", PROPOSAL_N, (14, 64, 1)),
                 ("field mlp_head", FIELD_N, (80, 256, 256, 3)))
 # Relative to the output's largest entry (see phase 4 above).
 FUSED_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+ACCUM_N = 1 << 21          # samples of the planar-accumulate microbenchmark
+ACCUM_SIZES = (81, 127)    # its dense levels of N^3 rows checked in phase 8
+# NVIDIA H100 SXM data sheet: memory rate, dense peaks by operand type
+# (bf16 on the tensor cores, fp32 on the FMA units).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def fail(msg: str) -> None:
@@ -85,6 +102,18 @@ def median_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float, dtype: str = "float32"):
+    """(least ms, what sets it): bytes over the memory rate against
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def compare(torch, hashgrid, hashgrid_bwd, spec, table, pos, g, label):
     """Both kernels against their plain versions on the same inputs;
     returns (forward max abs error, table-gradient max abs error)."""
@@ -109,6 +138,39 @@ def compare(torch, hashgrid, hashgrid_bwd, spec, table, pos, g, label):
           f"hashgrid_bwd disagrees with its plain version ({label}): "
           f"{bwd_rel}")
     return fwd_abs, bwd_abs
+
+
+def library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g):
+    """The yardsticks of the hash-grid kernels: one PyTorch call for each
+    kernel's function, fed the corner rows and weights computed beforehand
+    (outside the timing): `embedding_bag` with per-sample weights for the
+    forward's weighted gather, `index_add_` for the table gradient's
+    scatter. Each is checked against its kernel; returns their times."""
+    pos = p.reshape(-1, spec.num_dims)
+    rows, weights = [], []
+    for lvl in range(spec.num_levels):
+        r, w = hashgrid.corner_rows_level(spec, pos, lvl)
+        rows.append(r.t() + int(spec.level_offsets[lvl]))
+        weights.append(w.t())
+    corners = 2 ** spec.num_dims
+    rows = torch.stack(rows, 1).reshape(-1, corners)        # [n * L, 8]
+    weights = torch.stack(weights, 1).reshape(-1, corners)
+    tab = table.view(-1, spec.features_per_level)
+    keys = rows.reshape(-1)
+    vals = (weights[..., None] * g.reshape(-1, 1, spec.features_per_level)
+            ).reshape(-1, spec.features_per_level)
+    fwd = lambda: torch.nn.functional.embedding_bag(
+        rows, tab, per_sample_weights=weights, mode="sum")
+    bwd = lambda: torch.zeros_like(tab).index_add_(0, keys, vals)
+    out_k = hashgrid.hashgrid_fwd(table, p, spec)
+    gt_k = hashgrid_bwd.hashgrid_table_grad(p, g, spec)
+    fwd_rel = float((fwd().view(out_k.shape) - out_k).abs().max()
+                    / out_k.abs().max())
+    bwd_rel = float((bwd().view(-1) - gt_k).abs().max() / gt_k.abs().max())
+    check(fwd_rel <= 1e-5 and bwd_rel <= 1e-5,
+          f"the library yardsticks disagree with the kernels: {fwd_rel}, "
+          f"{bwd_rel}")
+    return {"fwd_library": median_ms(fwd), "bwd_library": median_ms(bwd)}
 
 
 def kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
@@ -162,11 +224,23 @@ def kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
                     lambda: hashgrid_bwd.hashgrid_table_grad_plain(
                         p, g, spec)),
             }
+            t.update(library_hashgrid(torch, hashgrid, hashgrid_bwd, spec,
+                                      table, p, g))
+            # Both kernels move the positions, the whole table (these
+            # samples touch most of its rows) and a [n, L*F] array once; per
+            # sample and level the fp32 work is 16 products of corner
+            # weights and 32 operations of the weighted sums.
+            t["bound_ms"], t["bound_by"] = bound(
+                nbytes(table, p, g), 48 * n_main * spec.num_levels)
             timings[name] = t
             print(f"time  {name:8s} xor, {n_main} samples x "
                   f"{spec.num_levels} levels: fwd {t['fwd']:.3f} ms (plain "
-                  f"{t['fwd_plain']:.3f})  table-grad {t['bwd']:.3f} ms "
-                  f"(plain {t['bwd_plain']:.3f})", flush=True)
+                  f"{t['fwd_plain']:.3f}, embedding_bag "
+                  f"{t['fwd_library']:.3f})  table-grad {t['bwd']:.3f} ms "
+                  f"(plain {t['bwd_plain']:.3f}, index_add_ "
+                  f"{t['bwd_library']:.3f}); bound of each "
+                  f"{t['bound_ms']:.3f} ms ({t['bound_by']}, "
+                  f"{nbytes(table, p, g) / 1e6:.1f} MB)", flush=True)
     return worst, timings
 
 
@@ -203,12 +277,16 @@ def fused_mlp_phase(torch, fused_mlp, dev):
             t = {"ms": median_ms(lambda: fused_mlp.fused_mlp_fwd(x, ws)),
                  "plain_ms": median_ms(
                      lambda: fused_mlp.fused_mlp_plain(x, ws))}
+            t["bound_ms"], t["bound_by"] = bound(
+                nbytes(x, out_p, *ws),
+                2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:])),
+                dtype_name)
             timings[(name, dtype_name)] = t
             print(f"check {label}: max_abs={err:.3e} (ragged span "
                   f"{sub_err:.3e}) max_rel={rel:.3e} "
                   f"(tol {FUSED_TOL[dtype_name]:.3e}); kernel "
-                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms",
-                  flush=True)
+                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+                  f"{t['bound_ms']:.3f} ms ({t['bound_by']})", flush=True)
             check(math.isfinite(rel) and rel <= FUSED_TOL[dtype_name],
                   f"fused_mlp_fwd disagrees with its plain version "
                   f"({label}): {rel}")
@@ -303,10 +381,11 @@ def small_model_phase(torch, tmp, dev, fused: bool):
 
 
 def launch_counters():
-    from nerf_hugs_torch.ops import fused_mlp, hashgrid, hashgrid_bwd
+    from nerf_hugs_torch.ops import accum, fused_mlp, hashgrid, hashgrid_bwd
     return {"hashgrid_fwd": hashgrid.hashgrid_fwd,
             "hashgrid_bwd": hashgrid_bwd.hashgrid_table_grad,
-            "fused_mlp_fwd": fused_mlp.fused_mlp_fwd}
+            "fused_mlp_fwd": fused_mlp.fused_mlp_fwd,
+            "planar_accum": accum.planar_accum}
 
 
 def reset_launches() -> None:
@@ -451,6 +530,67 @@ def eval_phase(torch, cfg_path: str, save_dir: str):
     return launches
 
 
+def accum_phase(torch, dev):
+    """Phase 8: the planar-accumulate kernel against its plain version,
+    then the microbenchmark through its entry point; returns the worst abs
+    error, the timings per dense level and the benchmark's launches."""
+    from nerf_hugs_torch.ops import accum
+    from nerf_hugs_torch.tools import bench_fwd_copies
+    worst, timings = 0.0, {}
+    for N in ACCUM_SIZES:
+        tab2, idx, w = bench_fwd_copies.make_inputs(N, ACCUM_N, dev)
+        vals = [tab2.index_select(0, idx[c]) for c in range(4)]
+        out_k = accum.planar_accum(*vals, w)
+        out_p = accum.planar_accum_plain(*vals, w)
+        # A ragged span, rows 1 .. n-3 of each input with w's columns as a
+        # view: a partial last block and a strided w.
+        m = ACCUM_N - 3
+        sub = [v[1:m] for v in vals]
+        sub_k = accum.planar_accum(*sub, w[:, 1:m])
+        sub_p = accum.planar_accum_plain(*sub, w[:, 1:m])
+        torch.cuda.synchronize()
+        check(out_k.shape == out_p.shape == (ACCUM_N, accum.F)
+              and sub_k.shape == (m - 1, accum.F),
+              f"planar_accum gave {tuple(out_k.shape)}, "
+              f"{tuple(sub_k.shape)}")
+        err = float((out_k - out_p).abs().max())
+        sub_err = float((sub_k - sub_p).abs().max())
+        t = {"ms": median_ms(lambda: accum.planar_accum(*vals, w)),
+             "plain_ms": median_ms(
+                 lambda: accum.planar_accum_plain(*vals, w))}
+        # 16 products and 16 sums per sample.
+        t["bound_ms"], t["bound_by"] = bound(nbytes(*vals, w, out_k),
+                                             32 * ACCUM_N)
+        timings[N] = t
+        print(f"check planar_accum, gathers of {ACCUM_N} samples from "
+              f"{N}^3 rows: max_abs={err:.3e} (ragged span {sub_err:.3e}, "
+              f"tol 1e-5); kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {nbytes(*vals, w, out_k) / 1e6:.1f} MB)",
+              flush=True)
+        check(math.isfinite(err) and max(err, sub_err) <= 1e-5,
+              f"planar_accum disagrees with its plain version ({N}^3 "
+              f"rows): {err}, ragged span {sub_err}")
+        worst = max(worst, err, sub_err)
+        del tab2, idx, w, vals, out_k, out_p, sub, sub_k, sub_p
+
+    reset_launches()
+    t0 = time.time()
+    report = bench_fwd_copies.main([str(ACCUM_N.bit_length() - 1)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(sorted(report) == list(bench_fwd_copies.SIZES)
+          and all(math.isfinite(v) and v > 0 for r in report.values()
+                  for v in r.values()),
+          f"bench_fwd_copies reported {report}")
+    check(launches["planar_accum"] > 0,
+          f"bench_fwd_copies did not launch planar_accum: {launches}")
+    print(f"bench_fwd_copies {ACCUM_N.bit_length() - 1}: "
+          f"{len(report)} sizes in {time.time() - t0:.1f} s; launches "
+          f"{launches}", flush=True)
+    return worst, timings, launches["planar_accum"]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
@@ -486,27 +626,42 @@ def main() -> None:
         _, _, launches = train_phase(torch, tmp, fused=False)
         cfg_path, save_dir, _ = train_phase(torch, tmp, fused=True)
         eval_launches = eval_phase(torch, cfg_path, save_dir)
+    accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
+    check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")
 
     field = timings["field"]
     head = fused_timings[("field mlp_head", "bfloat16")]
+    acc = accum_timings[81]
     print(json.dumps({"kernels": [
         {"name": "hashgrid_fwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/hashgrid.cu",
          "replaces": "nerf_hugs_tpu/ops/hashgrid.py:448",
          "launches": launches["hashgrid_fwd"], "max_abs_err": worst["fwd"],
-         "ms": field["fwd"], "plain_ms": field["fwd_plain"]},
+         "ms": field["fwd"], "plain_ms": field["fwd_plain"],
+         "bound_ms": field["bound_ms"], "bound_by": field["bound_by"],
+         "library_ms": field["fwd_library"]},
         {"name": "hashgrid_bwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/hashgrid.cu",
          "replaces": "nerf_hugs_tpu/ops/hashgrid_bwd.py:48",
          "launches": launches["hashgrid_bwd"], "max_abs_err": worst["bwd"],
-         "ms": field["bwd"], "plain_ms": field["bwd_plain"]},
+         "ms": field["bwd"], "plain_ms": field["bwd_plain"],
+         "bound_ms": field["bound_ms"], "bound_by": field["bound_by"],
+         "library_ms": field["bwd_library"]},
         {"name": "fused_mlp_fwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/fused_mlp.cu",
          "replaces": "nerf_hugs_tpu/ops/fused_mlp.py:39",
          "launches": eval_launches["fused_mlp_fwd"],
          "max_abs_err": fused_worst, "ms": head["ms"],
-         "plain_ms": head["plain_ms"]},
+         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+         "bound_by": head["bound_by"], "library_ms": None},
+        {"name": "planar_accum", "route": "cuda",
+         "source": "nerf_hugs_torch/csrc/accum.cu",
+         "replaces": "tools/bench_fwd_copies.py:94",
+         "launches": accum_launches, "max_abs_err": accum_worst,
+         "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+         "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

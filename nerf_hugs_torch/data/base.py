@@ -3,8 +3,9 @@
 Twin of nerf_hugs_tpu/data/base.py for one process: a daemon producer
 thread fills a queue.Queue(3) with Batches of numpy arrays; the train loop
 moves each batch to the device. Training batches are random dilated
-patches, gathered by the native threaded sampler (native/raysampler.cc,
-reused as it is) when g++ can build it, else by numpy.
+patches, gathered by the native threaded sampler (the port's copy of
+native/raysampler.cc, nerf_hugs_torch/native/) when g++ can build it, else
+by numpy.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
                        and len(set(self.camtypes)) == 1
                        and all(im.shape[-1] == 3 for im in self.images))
         if is_training and homogeneous:
-            from nerf_hugs_tpu.data import native_sampler
+            from nerf_hugs_torch.data import native_sampler
             try:
                 self._native = native_sampler.NativeSampler(
                     self.images, self.static_masks, self.nears, self.fars,

@@ -1,7 +1,7 @@
 """The yaml-dialect evaluation driver of the port.
 
     python -m nerf_hugs_torch.eval --config configs/nerfacto/X.yml \\
-        --data_dir DATA --save_dir CKPT --device {cuda,cpu} \\
+        --data_dir DATA --save_dir CKPT [--device cuda|cpu] \\
         [--eval_data train|test] [--original_name] [--only_pred_gt]
 
 Keeps the flow of the repo's eval.py (nerfacto yaml dialect) for one
@@ -18,7 +18,8 @@ pairs into `{save_dir}/{split}_preds/`, the HuGS pipeline's input. With
 eval_only_once false it polls for new checkpoints until the last one the
 run will write. The nerfacto model renders no per-ray buffers, so
 eval_save_ray_data has nothing to save; the gin dialect (Mip-NeRF 360) is
-not ported.
+not ported. It runs on the card unless --device cpu is given; without a
+card that is an error.
 """
 
 from __future__ import annotations
@@ -30,15 +31,15 @@ import time
 import numpy as np
 import torch
 
-from nerf_hugs_tpu.utils import io as nh_io
-from nerf_hugs_tpu.utils.record import Recorder
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models.nerfacto import NerfactoModel
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train.driver import load_config
 from nerf_hugs_torch.train.render_image import render_image
+from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
+from nerf_hugs_torch.utils.record import Recorder
 
 
 def parse_args(argv=None):
@@ -49,7 +50,7 @@ def parse_args(argv=None):
     parser.add_argument("--config", required=True, help="yaml config path")
     parser.add_argument("--data_dir", required=True)
     parser.add_argument("--save_dir", required=True, help="checkpoint dir")
-    parser.add_argument("--device", required=True, choices=("cuda", "cpu"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--eval_data", default=None, choices=("train", "test"))
     parser.add_argument("--original_name", action="store_true")
     parser.add_argument("--only_pred_gt", action="store_true")

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nerf_hugs_tpu.configs import config as _config
+from nerf_hugs_torch.configs import config as _config
 from nerf_hugs_torch.metrics.ssim import ssim
 
 # The background palette the models' _background draws from.

@@ -2,7 +2,7 @@
 
     python -m nerf_hugs_torch.metrics --experiment_dir EXP --scene_names S... \\
         [--image_type whole|half_right|half_left] [--save] \\
-        [--output_dir DIR] [--lpips_weights W] [--device cpu|cuda]
+        [--output_dir DIR] [--lpips_weights W] [--device cuda|cpu]
 
 Twin of the repo's metrics.py: walks {experiment_dir}/{scene}/test_preds/
 *_gt.png, scores each against its *_color.png, and reports per-image,
@@ -10,7 +10,8 @@ per-scene-mean and experiment-mean metrics as JSON
 ({output_dir}/metrics_results.json with --save). half_right is the
 Phototourism protocol (the left half finetuned the embeddings). LPIPS needs
 AlexNet-LPIPS weights on disk (--lpips_weights .npz or .pth); without them
-lpips is left out.
+lpips is left out. The scoring runs on the card unless --device cpu is
+given; without a card that is an error, not a fallback.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
-from nerf_hugs_tpu.utils import io as nh_io
 from nerf_hugs_torch.metrics import image as nh_image
+from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils.device import resolve_device
 
 IMAGE_TYPES = ["whole", "half_right", "half_left"]
@@ -40,11 +41,11 @@ def crop(img: np.ndarray, image_type: str) -> np.ndarray:
 
 def main(experiment_dir, scene_names, image_type="whole", is_save=False,
          output_dir="output_metrics", lpips_weights=None, eval_data="test",
-         device="cpu") -> dict:
-    """Score every scene; returns {scene: {image: metrics, 'mean': ...},
-    'mean': experiment mean}."""
+         device="cuda") -> dict:
+    """Score every scene on `device` ('cuda' or 'cpu'); returns {scene:
+    {image: metrics, 'mean': ...}, 'mean': experiment mean}."""
     harness = nh_image.MetricHarness(lpips_weights_path=lpips_weights,
-                                     device=device)
+                                     device=resolve_device(device))
     results = collections.defaultdict(dict)
     experiment_mean = collections.defaultdict(list)
     for scene_name in scene_names:
@@ -99,9 +100,9 @@ def cli(argv=None) -> dict:
                         default="whole")
     parser.add_argument("--lpips_weights", type=str, default=None,
                         help="path to AlexNet-LPIPS weights (.npz or torch)")
-    parser.add_argument("--device", type=str, default="cpu",
-                        choices=("cpu", "cuda"))
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
     return main(args.experiment_dir, args.scene_names, args.image_type,
                 args.save, args.output_dir, args.lpips_weights,
-                device=resolve_device(args.device))
+                device=args.device)

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from nerf_hugs_tpu.configs import config as cfg
+from nerf_hugs_torch.configs import config as cfg
 from nerf_hugs_torch.core import coord, render, stepfun
 from nerf_hugs_torch.ops.fused_mlp import FusedMLP, fused_mlp
 from nerf_hugs_torch.ops.hashgrid import HashGridEncoding, HashGridSpec

@@ -39,6 +39,8 @@ SIGNATURES = {
     # (x, host array of weight pointers, host int32 dims, num_layers, n,
     #  out, dtype 0 = float32 / 1 = bfloat16, stream)
     "fused_mlp_fwd": [_vp, _vp, _vp, _i32, _i64, _vp, _i32, _vp],
+    # (v0, v1, v2, v3, w, w row stride, out, n, stream)
+    "planar_accum": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _vp],
 }
 
 _lib: Optional[types.SimpleNamespace] = None

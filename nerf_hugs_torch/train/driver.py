@@ -1,7 +1,7 @@
 """The yaml-dialect training driver of the port.
 
     python -m nerf_hugs_torch.train --config configs/nerfacto/X.yml \\
-        --data_dir DATA --save_dir CKPT --device {cuda,cpu}
+        --data_dir DATA --save_dir CKPT [--device cuda|cpu]
 
 Keeps the loop of the repo's train.py (nerfacto yaml dialect, train stage):
 early_exit_steps, print_every lines with steps/s and rays/s, step-numbered
@@ -9,7 +9,8 @@ checkpoints with the model-compat sidecar, resume from the newest
 checkpoint, and the in-train eval window, which reports PSNR and SSIM
 through the MetricHarness. The finetune stage and tensorboard summaries
 wait (ROADMAP.md Queue 1).
-Every printed line also lands in {save_dir}/run_log.log.
+Every printed line also lands in {save_dir}/run_log.log. It runs on the
+card unless --device cpu is given; without a card that is an error.
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ import time
 import numpy as np
 import torch
 
-from nerf_hugs_tpu.configs import yaml_loader
-from nerf_hugs_tpu.utils.record import Recorder
+from nerf_hugs_torch.configs import yaml_loader
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models.nerfacto import NerfactoModel
@@ -32,6 +32,7 @@ from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
 from nerf_hugs_torch.train.render_image import render_image
 from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
+from nerf_hugs_torch.utils.record import Recorder
 
 
 def parse_args(argv=None):
@@ -41,7 +42,7 @@ def parse_args(argv=None):
     parser.add_argument("--config", required=True, help="yaml config path")
     parser.add_argument("--data_dir", required=True)
     parser.add_argument("--save_dir", required=True, help="checkpoint dir")
-    parser.add_argument("--device", required=True, choices=("cuda", "cpu"))
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return parser.parse_args(argv)
 
 

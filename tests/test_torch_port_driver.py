@@ -78,6 +78,20 @@ def test_driver_never_falls_back_to_cpu(tmp_path, monkeypatch):
                      str(tmp_path / "ckpt"), "--device", "cuda"])
 
 
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    from nerf_hugs_torch.eval import main as eval_main
+    from nerf_hugs_torch.metrics import main as score_main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tu.write_tiny_yaml(str(tmp_path))
+    dirs = ["--data_dir", str(tmp_path), "--save_dir", str(tmp_path / "ck")]
+    for run in (lambda: driver.main(["--config", cfg] + dirs),
+                lambda: eval_main(["--config", cfg] + dirs),
+                lambda: score_main(["--experiment_dir", str(tmp_path),
+                                    "--scene_names", "ck"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+
+
 def test_synthetic_data_matches_jax():
     from nerf_hugs_tpu.data import load_dataset as jax_load_dataset
     config = tu.tiny_config()
@@ -122,11 +136,9 @@ def test_render_image_is_chunk_invariant():
                                want[-1]["rgb"].numpy(), rtol=1e-6, atol=1e-6)
 
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax"}
-ALLOWED_TPU_MODULES = {
-    "nerf_hugs_tpu.configs.config", "nerf_hugs_tpu.configs.yaml_loader",
-    "nerf_hugs_tpu.data.native_sampler", "nerf_hugs_tpu.utils.io",
-    "nerf_hugs_tpu.utils.record"}
+# The port imports nothing of the JAX package, not even its jax-free
+# modules: it keeps its own copies of what it needs.
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "nerf_hugs_tpu"}
 
 
 def _imported_modules(path):
@@ -136,28 +148,16 @@ def _imported_modules(path):
             for alias in node.names:
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.module:
-            if node.module == "nerf_hugs_tpu" or (
-                    node.module in {m.rsplit(".", 1)[0]
-                                    for m in ALLOWED_TPU_MODULES}):
-                # `from pkg import module` names the module itself.
-                for alias in node.names:
-                    yield f"{node.module}.{alias.name}"
-            else:
-                yield node.module
+            yield node.module
 
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "nerf_hugs_torch").rglob("*.py"))
     assert len(files) > 20
-    bad = []
-    for path in files + [REPO / "chip_smoke.py"]:
-        for mod in _imported_modules(path):
-            root = mod.split(".")[0]
-            if root in FORBIDDEN or (
-                    root == "nerf_hugs_tpu"
-                    and (mod not in ALLOWED_TPU_MODULES
-                         or path.name == "chip_smoke.py")):
-                bad.append(f"{path.relative_to(REPO)}: {mod}")
+    bad = [f"{path.relative_to(REPO)}: {mod}"
+           for path in files + [REPO / "chip_smoke.py"]
+           for mod in _imported_modules(path)
+           if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
 

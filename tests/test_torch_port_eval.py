@@ -289,7 +289,8 @@ def test_python_m_eval_writes_images_and_metrics(trained):
     import metrics as jax_metrics
     out = ckpt.parent / "scores"
     got = score_main(["--experiment_dir", str(ckpt.parent), "--scene_names",
-                      "scene", "--save", "--output_dir", str(out)])
+                      "scene", "--save", "--output_dir", str(out),
+                      "--device", "cpu"])
     saved = json.loads((out / "metrics_results.json").read_text())
     assert saved == json.loads(json.dumps(got))
     assert set(saved["scene"]) == set(names) | {"mean"}
@@ -299,7 +300,7 @@ def test_python_m_eval_writes_images_and_metrics(trained):
         if image_type != "whole":
             got = score_main(["--experiment_dir", str(ckpt.parent),
                               "--scene_names", "scene", "--image_type",
-                              image_type])
+                              image_type, "--device", "cpu"])
         # XLA's CPU mean sums the squared errors in fp32 in order (relative
         # error up to ~1e-5 of the MSE at these sizes); SSIM sits near 0.
         for name in names + ["mean"]:
