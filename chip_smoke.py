@@ -9,11 +9,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      source, all started together;
   3. the hash-grid kernels against their plain PyTorch versions on the
      card, at the field's and the proposal's grid specs of
-     kubric_nerfacto_base, for both hash_impls, on 2^20 random positions
-     plus exact-1.0 edges and on the main path's [16384, samples per ray, 3]
-     sample tensors (forward within 1e-6 absolute, table gradient within
-     1e-5 of its largest entry; the atomics sum in a varying order), then
-     the median of 10 timed runs of each at the main path's shapes;
+     kubric_nerfacto_base and of kubric_nerfacto_tpu, for both hash_impls,
+     on 2^20 random positions plus exact-1.0 edges, on adversarial sets of
+     a ragged 2^13 + 37 samples (all in one cell; all at the origin with
+     zero gradient; half of them there, in random lanes; warps split
+     between two cells by halves and by alternating lanes; ray-ordered
+     samples whose out-of-box tails collapse to the origin with zero
+     gradient) and, at kubric_nerfacto_base, on the main path's
+     [16384, samples per ray, 3] sample tensors (forward within 1e-6
+     absolute, table gradient within 1e-5 of its largest entry; the atomics
+     sum in a varying order), then the median of 10 timed runs of each at
+     the main path's shapes;
   4. the fused-MLP kernel against its plain version at the three shapes of
      kubric_nerfacto_base with enable_tcnn_mlp (proposal mlp_base
      [4194304, 14] -> 64 -> 1, field mlp_base [2097152, 32] -> 256 -> 65,
@@ -24,15 +30,22 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. a small model on the card (kernels) against the same weights on the
      CPU (plain versions), loss and every parameter gradient, with the
      Dense MLPs and with enable_tcnn_mlp on for the field and the proposal;
-  6. 8 train steps of configs/nerfacto/kubric_nerfacto_base.yml at full
+  6. the hash-grid kernels on the main path's own inputs: one batch of
+     compute_loss + backward through the full-width kubric_nerfacto_base
+     model of phase 7 on the card, with hooks on the field's and the
+     proposal's HashGridEncoding capturing the grid positions and output
+     gradients they receive; both kernels checked against their plain
+     versions on them and timed, with the share of out-of-box samples and
+     of zero-gradient (sample, level) pairs;
+  7. 8 train steps of configs/nerfacto/kubric_nerfacto_base.yml at full
      model width on a procedural scene through `nerf_hugs_torch.train.main`,
      with the hash-grid kernels' launch counters read around the run;
-  7. the same 8 steps with enable_tcnn_mlp on for the field and the
+  8. the same 8 steps with enable_tcnn_mlp on for the field and the
      proposal, then `nerf_hugs_torch.eval.main` on its checkpoint (2 test
      images of 256x256, 4 render chunks each) with the fused-MLP and
      hash-grid launch counters read around the eval, then the scoring CLI
      over the test_preds/ PNGs the eval wrote;
-  8. the planar-accumulate kernel against its plain version on the gathers
+  9. the planar-accumulate kernel against its plain version on the gathers
      of n = 2^21 samples from dense levels of 81^3 and 127^3 rows, and on a
      ragged span of them (within 1e-5 absolute), with timings, then the
      microbenchmark `nerf_hugs_torch.tools.bench_fwd_copies` through its
@@ -60,17 +73,20 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-BATCH = 16384              # rays per step of kubric_nerfacto_base
-FIELD_N = BATCH * 128      # batch x field samples per ray
-PROPOSAL_N = BATCH * 256   # batch x proposal samples per ray
-# The fused-MLP shapes of kubric_nerfacto_base with enable_tcnn_mlp.
-FUSED_SHAPES = (("proposal mlp_base", PROPOSAL_N, (14, 64, 1)),
-                ("field mlp_base", FIELD_N, (32, 256, 65)),
-                ("field mlp_head", FIELD_N, (80, 256, 256, 3)))
+# The fused-MLP shapes of kubric_nerfacto_base with enable_tcnn_mlp: (name,
+# samples per ray, layer widths); the rows are the batch's rays times the
+# samples per ray.
+FUSED_SHAPES = (("proposal mlp_base", 256, (14, 64, 1)),
+                ("field mlp_base", 128, (32, 256, 65)),
+                ("field mlp_head", 128, (80, 256, 256, 3)))
 # Relative to the output's largest entry (see phase 4 above).
 FUSED_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# Ragged: no multiple of a warp or a block. Each adversarial row gradient
+# sums up to n payloads, and the plain version's sequential atomics round
+# about sqrt(n) times; at 2^13 that stays a few 1e-6 of the largest entry.
+ADVERSARIAL_N = (1 << 13) + 37
 ACCUM_N = 1 << 21          # samples of the planar-accumulate microbenchmark
-ACCUM_SIZES = (81, 127)    # its dense levels of N^3 rows checked in phase 8
+ACCUM_SIZES = (81, 127)    # its dense levels of N^3 rows checked in phase 9
 # NVIDIA H100 SXM data sheet: memory rate, dense peaks by operand type
 # (bf16 on the tensor cores, fp32 on the FMA units).
 HBM_BYTES_PER_S = 3.35e12
@@ -125,16 +141,17 @@ def compare(torch, hashgrid, hashgrid_bwd, spec, table, pos, g, label):
     check(out_k.shape == out_p.shape == g.shape,
           f"hashgrid_fwd gave {tuple(out_k.shape)} ({label})")
     fwd_abs = float((out_k - out_p).abs().max())
-    fwd_rel = fwd_abs / float(out_p.abs().max())
     bwd_abs = float((gt_k - gt_p).abs().max())
-    bwd_rel = bwd_abs / float(gt_p.abs().max())
-    print(f"check {label}: fwd max_abs={fwd_abs:.3e} max_rel={fwd_rel:.3e}  "
-          f"table-grad max_abs={bwd_abs:.3e} max_rel={bwd_rel:.3e}",
-          flush=True)
+    # An all-zero plain gradient (every dL/dfeature zero) must come out
+    # exactly zero.
+    bwd_max = float(gt_p.abs().max())
+    bwd_rel = bwd_abs / bwd_max if bwd_max else bwd_abs
+    print(f"check {label}: fwd max_abs={fwd_abs:.3e}  table-grad "
+          f"max_abs={bwd_abs:.3e} max_rel={bwd_rel:.3e}", flush=True)
     check(math.isfinite(fwd_abs) and fwd_abs <= 1e-6,
           f"hashgrid_fwd disagrees with its plain version ({label}): "
           f"{fwd_abs}")
-    check(math.isfinite(bwd_rel) and bwd_rel <= 1e-5,
+    check(math.isfinite(bwd_abs) and bwd_abs <= 1e-5 * bwd_max,
           f"hashgrid_bwd disagrees with its plain version ({label}): "
           f"{bwd_rel}")
     return fwd_abs, bwd_abs
@@ -173,26 +190,87 @@ def library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g):
     return {"fwd_library": median_ms(fwd), "bwd_library": median_ms(bwd)}
 
 
+def time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g, label):
+    """Median times of both kernels, their plain versions and their
+    yardsticks on one input set, with the bound; prints one line."""
+    t = {
+        "fwd": median_ms(lambda: hashgrid.hashgrid_fwd(table, p, spec)),
+        "fwd_plain": median_ms(
+            lambda: hashgrid.hashgrid_encode_plain(table, p, spec)),
+        "bwd": median_ms(
+            lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec)),
+        "bwd_plain": median_ms(
+            lambda: hashgrid_bwd.hashgrid_table_grad_plain(p, g, spec)),
+    }
+    t.update(library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p,
+                              g))
+    # Both kernels move the positions, the whole table (these samples touch
+    # most of its rows) and a [n, L*F] array once; per sample and level the
+    # fp32 work is 16 products of corner weights and 32 operations of the
+    # weighted sums.
+    n = p.numel() // spec.num_dims
+    t["bound_ms"], t["bound_by"] = bound(nbytes(table, p, g),
+                                         48 * n * spec.num_levels)
+    print(f"time  {label}, {n} samples x {spec.num_levels} levels: fwd "
+          f"{t['fwd']:.3f} ms (plain {t['fwd_plain']:.3f}, embedding_bag "
+          f"{t['fwd_library']:.3f})  table-grad {t['bwd']:.3f} ms (plain "
+          f"{t['bwd_plain']:.3f}, index_add_ {t['bwd_library']:.3f}); bound "
+          f"of each {t['bound_ms']:.3f} ms ({t['bound_by']}, "
+          f"{nbytes(table, p, g) / 1e6:.1f} MB)", flush=True)
+    return t
+
+
+def adversarial_sets(torch, dev, gen):
+    """[(label, positions [ADVERSARIAL_N, 3], zero-gradient mask [n])]:
+    the cases that stress the kernels' row combining and zero skipping."""
+    n = ADVERSARIAL_N
+    lane = torch.arange(n, device=dev) % 32
+    a = torch.tensor([0.3, 0.6, 0.2], device=dev).expand(n, 3)
+    b = torch.tensor([0.7, 0.1, 0.9], device=dev).expand(n, 3)
+    origin = torch.zeros((n, 3), device=dev)
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    half = torch.rand(n, generator=gen, device=dev) < 0.5
+    uniform = torch.rand((n, 3), generator=gen, device=dev)
+    # Rays of 128 ordered samples from a point in the box; the samples that
+    # leave the box collapse to the origin with a zero gradient, as the
+    # model's out-of-box samples do.
+    rays = -(-n // 128)
+    start = torch.rand((rays, 1, 3), generator=gen, device=dev)
+    direction = torch.nn.functional.normalize(
+        torch.randn((rays, 1, 3), generator=gen, device=dev), dim=-1)
+    t = torch.linspace(0.0, 1.5, 128, device=dev)[None, :, None]
+    ray_pos = (start + direction * t).reshape(-1, 3)[:n]
+    inside = ((ray_pos >= 0) & (ray_pos <= 1)).all(-1)
+    return [
+        ("every sample in one cell", a.contiguous(), none),
+        ("every sample at the origin, zero gradient", origin, ~none),
+        ("half at the origin with zero gradient, random lanes",
+         torch.where(half[:, None], origin, uniform), half),
+        ("warps split between two cells by halves",
+         torch.where((lane < 16)[:, None], a, b), none),
+        ("warps split between two cells, alternating lanes",
+         torch.where((lane % 2 == 0)[:, None], a, b), none),
+        ("ray-ordered, out-of-box tails at the origin with zero gradient",
+         (ray_pos * inside[:, None]).contiguous(), ~inside),
+    ]
+
+
 def kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
-    """Kernel vs plain version at the main path's specs and sample shapes;
-    returns the worst errors and the timings per spec."""
-    field = hashgrid.HashGridSpec(num_levels=16, features_per_level=2,
-                                  log2_hashmap_size=21, base_res=16,
-                                  max_res=8192)
-    proposal = hashgrid.HashGridSpec(num_levels=7, features_per_level=2,
-                                     log2_hashmap_size=17, base_res=16,
-                                     max_res=2048)
+    """Kernel vs plain version at the kubric_nerfacto_base and
+    kubric_nerfacto_tpu specs on uniform, edge and adversarial sets, and at
+    the main path's sample shapes; returns the worst errors and the
+    timings per kubric_nerfacto_base spec."""
+    from nerf_hugs_torch.tools.hashgrid_inputs import BATCH, GRIDS
     gen = torch.Generator(device=dev).manual_seed(0)
     edges = torch.tensor([[1.0, 1.0, 1.0], [1.0, 0.3, 0.7], [0.3, 1.0, 0.7],
                           [0.3, 0.7, 1.0], [0.0, 0.0, 0.0]], device=dev)
     pos = torch.cat([torch.rand((1 << 20, 3), generator=gen, device=dev),
                      edges])
+    adversarial = adversarial_sets(torch, dev, gen)
     worst = {"fwd": 0.0, "bwd": 0.0}
     timings = {}
-    for name, base_spec, n_main in (("field", field, FIELD_N),
-                                    ("proposal", proposal, PROPOSAL_N)):
-        # [rays, samples per ray, 3], as the model hands the encoder.
-        main_shape = (BATCH, n_main // BATCH)
+    for name, kw, n_main in GRIDS:
+        base_spec = hashgrid.HashGridSpec(**kw)
         for impl in ("xor", "add"):
             spec = dataclasses.replace(base_spec, hash_impl=impl)
             table = torch.rand(spec.num_rows * 2, generator=gen,
@@ -200,58 +278,44 @@ def kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
             g = torch.randn((pos.shape[0], spec.output_dim), generator=gen,
                             device=dev)
             errs = [compare(torch, hashgrid, hashgrid_bwd, spec, table, pos,
-                            g, f"{name:8s} {impl}, {pos.shape[0]} positions "
+                            g, f"{name:12s} {impl}, {pos.shape[0]} positions "
                             "with exact-1.0 edges")]
-            p = torch.rand(main_shape + (3,), generator=gen, device=dev)
-            g = torch.randn(main_shape + (spec.output_dim,), generator=gen,
-                            device=dev)
-            errs.append(compare(torch, hashgrid, hashgrid_bwd, spec, table, p,
-                                g, f"{name:8s} {impl}, [{BATCH}, "
-                                f"{main_shape[1]}, 3] main-path samples"))
+            for label, p, zero in adversarial:
+                g = torch.randn((p.shape[0], spec.output_dim), generator=gen,
+                                device=dev).masked_fill(zero[:, None], 0.0)
+                errs.append(compare(torch, hashgrid, hashgrid_bwd, spec,
+                                    table, p, g, f"{name:12s} {impl}, "
+                                    f"{p.shape[0]} samples, {label}"))
+            if n_main is not None:
+                # [rays, samples per ray, 3], as the model hands the encoder.
+                main_shape = (BATCH, n_main // BATCH)
+                p = torch.rand(main_shape + (3,), generator=gen, device=dev)
+                g = torch.randn(main_shape + (spec.output_dim,),
+                                generator=gen, device=dev)
+                errs.append(compare(
+                    torch, hashgrid, hashgrid_bwd, spec, table, p, g,
+                    f"{name:12s} {impl}, [{BATCH}, {main_shape[1]}, 3] "
+                    "main-path samples"))
+                if impl == "xor":
+                    timings[name] = time_hashgrid(
+                        torch, hashgrid, hashgrid_bwd, spec, table, p, g,
+                        f"{name:8s} xor, uniform")
             for fwd_abs, bwd_abs in errs:
                 worst["fwd"] = max(worst["fwd"], fwd_abs)
                 worst["bwd"] = max(worst["bwd"], bwd_abs)
-            if impl != "xor":
-                continue
-            t = {
-                "fwd": median_ms(
-                    lambda: hashgrid.hashgrid_fwd(table, p, spec)),
-                "fwd_plain": median_ms(
-                    lambda: hashgrid.hashgrid_encode_plain(table, p, spec)),
-                "bwd": median_ms(
-                    lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec)),
-                "bwd_plain": median_ms(
-                    lambda: hashgrid_bwd.hashgrid_table_grad_plain(
-                        p, g, spec)),
-            }
-            t.update(library_hashgrid(torch, hashgrid, hashgrid_bwd, spec,
-                                      table, p, g))
-            # Both kernels move the positions, the whole table (these
-            # samples touch most of its rows) and a [n, L*F] array once; per
-            # sample and level the fp32 work is 16 products of corner
-            # weights and 32 operations of the weighted sums.
-            t["bound_ms"], t["bound_by"] = bound(
-                nbytes(table, p, g), 48 * n_main * spec.num_levels)
-            timings[name] = t
-            print(f"time  {name:8s} xor, {n_main} samples x "
-                  f"{spec.num_levels} levels: fwd {t['fwd']:.3f} ms (plain "
-                  f"{t['fwd_plain']:.3f}, embedding_bag "
-                  f"{t['fwd_library']:.3f})  table-grad {t['bwd']:.3f} ms "
-                  f"(plain {t['bwd_plain']:.3f}, index_add_ "
-                  f"{t['bwd_library']:.3f}); bound of each "
-                  f"{t['bound_ms']:.3f} ms ({t['bound_by']}, "
-                  f"{nbytes(table, p, g) / 1e6:.1f} MB)", flush=True)
     return worst, timings
 
 
 def fused_mlp_phase(torch, fused_mlp, dev):
     """The fused-MLP kernel vs its plain version at the main path's shapes,
     bf16 and fp32; returns the worst abs error and the timings."""
+    from nerf_hugs_torch.tools.hashgrid_inputs import BATCH
     gen = torch.Generator(device=dev).manual_seed(1)
     worst, timings = 0.0, {}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
-        for name, n, dims in FUSED_SHAPES:
+        for name, per_ray, dims in FUSED_SHAPES:
+            n = BATCH * per_ray
             x = torch.randn((n, dims[0]), generator=gen, device=dev).to(dtype)
             ws = [((torch.rand((a, b), generator=gen, device=dev) * 2 - 1)
                    * math.sqrt(6.0 / a)).to(dtype)
@@ -330,20 +394,13 @@ model:
 """
 
 
-def fused_overlay(model: dict) -> dict:
-    """The model section with enable_tcnn_mlp on for the field and for
-    every proposal_net_args_list entry."""
-    return {**model, "enable_tcnn_mlp": True, "proposal_net_args_list": [
-        {**a, "enable_tcnn_mlp": True}
-        for a in model["proposal_net_args_list"]]}
-
-
 def small_model_phase(torch, tmp, dev, fused: bool):
     """A small model through the kernels on the card vs the same weights
     through the plain versions on the CPU."""
     import yaml
     from nerf_hugs_torch.data import load_dataset
     from nerf_hugs_torch.models.nerfacto import NerfactoModel
+    from nerf_hugs_torch.tools.hashgrid_inputs import fused_overlay
     from nerf_hugs_torch.train import driver
     from nerf_hugs_torch.train.step import compute_loss
     raw = yaml.safe_load(SMALL_YAML)
@@ -397,29 +454,35 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in launch_counters().items()}
 
 
+def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, tmp, dev):
+    """Phase 6: both kernels on the inputs the main path hands them,
+    checked and timed; returns the worst errors."""
+    from nerf_hugs_torch.tools.hashgrid_inputs import (
+        capture_hashgrid_inputs, capture_shares)
+    captured = capture_hashgrid_inputs(cfg_path, tmp, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for name, (spec, p, g) in captured.items():
+        print(f"capture {name:8s} {tuple(p.shape)}: "
+              + capture_shares(spec, p, g), flush=True)
+        table = torch.rand(spec.num_rows * 2, generator=gen,
+                           device=dev) * 2 - 1
+        fwd_abs, bwd_abs = compare(torch, hashgrid, hashgrid_bwd, spec, table,
+                                   p, g, f"{name:8s} captured")
+        worst = {"fwd": max(worst["fwd"], fwd_abs),
+                 "bwd": max(worst["bwd"], bwd_abs)}
+        time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g,
+                      f"{name:8s} captured")
+    return worst
+
+
 def train_phase(torch, tmp, fused: bool):
     """8 full-width kubric_nerfacto_base steps through the driver; returns
     (config path, checkpoint dir, kernel launches)."""
-    import yaml
+    from nerf_hugs_torch.tools.hashgrid_inputs import base_yaml
     from nerf_hugs_torch.train import main as train_main
-    with open(os.path.join(HERE, "configs", "nerfacto",
-                           "kubric_nerfacto_base.yml")) as f:
-        raw = yaml.safe_load(f)
-    raw["base"].update({
-        "dataset_type": "synthetic", "early_exit_steps": 8, "print_every": 1,
-        "synthetic_num_images": 32, "synthetic_height": 512,
-        "synthetic_width": 512,
-        # Shrinks the procedural world so the sphere lies inside the
-        # config's near/far (0.1/2) and bound (1).
-        "synthetic_world_scale": 0.5,
-        # Read by the eval phase only: 2 test images.
-        "eval_dataset_limit": 2})
     tag = "fused" if fused else "dense"
-    if fused:
-        raw["model"] = fused_overlay(raw["model"])
-    cfg_path = os.path.join(tmp, f"kubric_nerfacto_base_synthetic_{tag}.yml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(raw, f)
+    cfg_path = base_yaml(tmp, fused)
     save_dir = os.path.join(tmp, "exp", tag)
 
     reset_launches()
@@ -531,7 +594,7 @@ def eval_phase(torch, cfg_path: str, save_dir: str):
 
 
 def accum_phase(torch, dev):
-    """Phase 8: the planar-accumulate kernel against its plain version,
+    """Phase 9: the planar-accumulate kernel against its plain version,
     then the microbenchmark through its entry point; returns the worst abs
     error, the timings per dense level and the benchmark's launches."""
     from nerf_hugs_torch.ops import accum
@@ -608,6 +671,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_hugs_torch.ops import fused_mlp, hashgrid, hashgrid_bwd, kernels
+    from nerf_hugs_torch.tools.hashgrid_inputs import base_yaml
     from nerf_hugs_torch.utils.device import pin_fp32_precision
     pin_fp32_precision()
     kernels.load()
@@ -623,6 +687,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         small_model_phase(torch, tmp, dev, fused=False)
         small_model_phase(torch, tmp, dev, fused=True)
+        captured_worst = captured_phase(torch, hashgrid, hashgrid_bwd,
+                                        base_yaml(tmp, fused=False), tmp, dev)
+        worst = {k: max(v, captured_worst[k]) for k, v in worst.items()}
         _, _, launches = train_phase(torch, tmp, fused=False)
         cfg_path, save_dir, _ = train_phase(torch, tmp, fused=True)
         eval_launches = eval_phase(torch, cfg_path, save_dir)

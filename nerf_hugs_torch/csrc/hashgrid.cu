@@ -9,38 +9,64 @@
 // Features per level F = 2, so a table row is one 8-byte float2.
 //
 // The table is one flat float32 array, levels concatenated in tcnn order;
-// each level starts at a row offset that is a multiple of 8 rows, so every
-// row load stays 8-byte aligned. Per-level constants live in a small device
-// table of 8 int32 per level (see LevelRow), read through the read-only
-// cache: every thread of a warp reads the same few rows of it.
+// each level starts at a row offset that is a multiple of 8 rows, so with a
+// table that starts on 16 bytes (the wrappers check it) an even row starts
+// an aligned 16-byte pair. Per-level constants live in a small device table
+// of 8 int32 per level (see LevelRow), read through the read-only cache:
+// the threads of a warp read one or a few rows of it.
 //
 // hashgrid_fwd replaces the XLA gather encode `_encode_impl`
-// (nerf_hugs_tpu/ops/hashgrid.py:448-537; it has no Pallas source). One
-// thread per (sample, level), sample-major so a warp writes its 32 float2
-// outputs contiguously. The kernel is bound by the latency of its eight
-// random row gathers: the field's tables (182.6 MiB at
-// kubric_nerfacto_base) do not fit the 50 MB L2, the proposal's 5.4 MiB do.
-// The design issues all eight independent loads before any of them is
-// used, so a thread keeps eight gathers in flight.
+// (nerf_hugs_tpu/ops/hashgrid.py:448-537; it has no Pallas source). It is
+// bound by its random row gathers: 8 per (sample, level), 268M at
+// kubric_nerfacto_base's field, each a 32-byte sector for 8 bytes used,
+// and the tables (182.6 MiB at the field) do not fit the 50 MB L2. A thread
+// takes one (sample, level), sample-major, so neighbouring ray samples
+// share an SM's L1 and a warp's stores are one contiguous run of features.
+// The eight gathers are issued before any is used, and where a cell's two
+// x-corners share an aligned 16-byte row pair (dense and additive levels
+// with an even row, xor levels with an even x) one float4 load takes both.
+// The launch bounds keep a full SM of threads (32 registers). Level-major
+// launches, and groups of levels whose tables fit the L2, won on uniform
+// positions but not on the main path's ray-ordered ones (PERF.md,
+// section 6), so the forward keeps the sample-major order.
 //
 // hashgrid_bwd replaces the Pallas segment-sum `_kernel` with its driver
 // `block_segment_sum` (nerf_hugs_tpu/ops/hashgrid_bwd.py:48-239) and the
 // custom VJP backward `_encode_custom_bwd` (hashgrid.py:579-647). The TPU
 // sorts the corner entries by row and segment-sums them with one-hot
-// matmuls because it has no fast scatter; Hopper has float2 atomics in
-// L2, so each thread recomputes its corner rows and weights from the
-// positions and adds w * dL/dfeature straight into the fp32 table gradient.
-// Recomputing instead of saving rows and weights keeps 2^d * 8 bytes per
-// sample and level out of device memory (about 2.1 GB for the field at
-// kubric_nerfacto_base). The kernel is bound by atomic throughput on
-// colliding rows (the coarse dense levels take every sample) and by the
-// random access to the 182.6 MiB gradient; the payload stays fp32, the
+// matmuls because it has no fast scatter; here each thread recomputes its
+// sample's corner rows and weights from the positions (no saved residuals:
+// they would be 2^d * 8 bytes per sample and level, about 2.1 GB for the
+// field) and adds w * dL/dfeature into the fp32 table gradient with vector
+// atomics in the L2. What bounds it is the number of atomics and their
+// serialisation on shared rows, not bytes: ray-ordered samples put whole
+// runs of a warp's lanes in one coarse cell, and samples outside the box
+// all land in the origin's cell. The design:
+//   - level-major: blockIdx.y is the level, samples run along x in the
+//     caller's order, so the blocks in flight share one level and its
+//     gradient (at most 16 MiB) stays in the L2;
+//   - a (sample, level) whose dL/dfeature is exactly zero adds only +-0 to
+//     a zero-initialised gradient, which changes no bit; it issues nothing
+//     (the model collapses out-of-box samples to the origin and masks
+//     their density, so their gradient is exactly zero);
+//   - the lanes of a warp in one cell (equal integer corner, found with
+//     __match_any_sync) sum their eight payloads with shuffles when they
+//     form runs, and one lane issues the atomics;
+//   - where two x-corners share an aligned row pair, one float4 atomic adds
+//     both (sm_90 has vector atomics in global memory).
+// Only the order of the fp32 additions changes. The payload stays fp32, the
 // JAX package's bwd_dtype='float32' mode. Positions get no gradient.
+// Summing the coarse levels in a block's shared memory first lost on the
+// main path's inputs (Hopper has no float add on shared memory: each add is
+// a compare-and-swap loop), so the gradient goes to the L2 directly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
 
 // One row of the per-level device table, 8 int32:
 //   [0] scale (float bits)  [1..3] per-dim multiplier: N_l^d on dense
@@ -52,7 +78,6 @@ struct LevelRow {
   uint32_t size;
   uint32_t offset;
   uint32_t dense;
-  uint32_t pad;
 };
 
 __device__ __forceinline__ LevelRow load_level(const int4* __restrict__ lt,
@@ -67,29 +92,30 @@ __device__ __forceinline__ LevelRow load_level(const int4* __restrict__ lt,
   r.size = (uint32_t)b.x;
   r.offset = (uint32_t)b.y;
   r.dense = (uint32_t)b.z;
-  r.pad = 0;
   return r;
 }
 
-// Corner rows (absolute, in the concatenated table) and trilinear weights
-// of one sample at one level, in the corner order of
-// HashGridSpec.corner_offsets (dim 0 most significant). The rounding
-// follows the plain version op for op: no fused multiply-adds.
+// The cell of a sample at one level: integer lower corner and fractions.
+// The rounding follows the plain version op for op: no fused multiply-adds.
 template <int D>
-__device__ __forceinline__ void level_corners(const float* __restrict__ p,
-                                              const LevelRow& lv,
-                                              uint32_t hash_mask,
-                                              bool hash_add,
-                                              uint32_t* row, float* w) {
-  uint32_t x0[D];
-  float frac[D];
+__device__ __forceinline__ void locate(const float* p, const LevelRow& lv,
+                                       uint32_t* x0, float* frac) {
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const float x = __fadd_rn(__fmul_rn(__ldg(p + d), lv.scale), 0.5f);
+    const float x = __fadd_rn(__fmul_rn(p[d], lv.scale), 0.5f);
     const float xf = floorf(x);
     frac[d] = __fsub_rn(x, xf);
     x0[d] = (uint32_t)xf;
   }
+}
+
+// Level-local corner rows and trilinear weights of one cell, in the corner
+// order of HashGridSpec.corner_offsets (dim 0 most significant).
+template <int D>
+__device__ __forceinline__ void corners(const uint32_t* x0, const float* frac,
+                                        const LevelRow& lv,
+                                        uint32_t hash_mask, bool hash_add,
+                                        uint32_t* row, float* w) {
   const bool additive = lv.dense || hash_add;
 #pragma unroll
   for (int c = 0; c < (1 << D); ++c) {
@@ -110,117 +136,209 @@ __device__ __forceinline__ void level_corners(const float* __restrict__ p,
     } else {
       idx &= hash_mask;
     }
-    row[c] = lv.offset + idx;
+    row[c] = idx;
     w[c] = wc;
   }
 }
 
+// One sample's features at one level: the eight gathers first, then the
+// weighted sum in corner order.
 template <int D>
-__global__ void __launch_bounds__(256)
-hashgrid_fwd_kernel(const float2* __restrict__ table,
-                    const float* __restrict__ pos, float2* __restrict__ out,
-                    int64_t n, int num_levels, uint32_t hash_mask,
-                    int hash_add, const int4* __restrict__ levels) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * num_levels) return;
-  const int64_t s = i / num_levels;
-  const int l = (int)(i - s * num_levels);
-  const LevelRow lv = load_level(levels, l);
-  uint32_t row[1 << D];
-  float w[1 << D];
-  level_corners<D>(pos + s * D, lv, hash_mask, hash_add != 0, row, w);
+__device__ __forceinline__ float2 encode_level(
+    const float2* __restrict__ table, const float* p, const LevelRow& lv,
+    uint32_t hash_mask, bool hash_add) {
+  uint32_t x0[D], row[1 << D];
+  float frac[D], w[1 << D];
+  locate<D>(p, lv, x0, frac);
+  corners<D>(x0, frac, lv, hash_mask, hash_add, row, w);
+  const float2* t = table + lv.offset;
+  constexpr int H = 1 << (D - 1);  // corner c + H is c's x + 1 neighbour
   float2 v[1 << D];
 #pragma unroll
-  for (int c = 0; c < (1 << D); ++c) v[c] = __ldg(table + row[c]);
+  for (int c = 0; c < H; ++c) {
+    // Level offsets are multiples of 8 rows, so an even row starts an
+    // aligned 16-byte pair.
+    const float4 q =
+        __ldg(reinterpret_cast<const float4*>(t + (row[c] & ~1u)));
+    const bool odd = row[c] & 1u;
+    v[c] = odd ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
+    if ((row[c] ^ row[c + H]) == 1u) {
+      v[c + H] = odd ? make_float2(q.x, q.y) : make_float2(q.z, q.w);
+    } else {
+      v[c + H] = __ldg(t + row[c + H]);
+    }
+  }
   float2 acc = make_float2(0.0f, 0.0f);
 #pragma unroll
   for (int c = 0; c < (1 << D); ++c) {
     acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], v[c].x));
     acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], v[c].y));
   }
-  out[i] = acc;
+  return acc;
 }
 
-__device__ __forceinline__ void atomic_add2(float2* addr, float2 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(addr, v);  // one vector atomic on sm_90
-#else
-  atomicAdd(&addr->x, v.x);
-  atomicAdd(&addr->y, v.y);
-#endif
-}
-
+// grid ceil(n * L / kThreads): thread i takes sample i / L at level i % L,
+// so a warp's stores are one contiguous run of features. The launch bounds
+// hold it to 32 registers, a full SM of threads.
 template <int D>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads, 2048 / kThreads)
+hashgrid_fwd_kernel(const float2* __restrict__ table,
+                    const float* __restrict__ pos, float2* __restrict__ out,
+                    int64_t n, int num_levels, uint32_t hash_mask,
+                    int hash_add, const int4* __restrict__ levels) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t count = n * num_levels;
+  if (i >= count) return;
+  int64_t s;
+  if (count <= 0xffffffffll) {  // 32-bit division where it suffices
+    s = (uint32_t)i / (uint32_t)num_levels;
+  } else {
+    s = i / num_levels;
+  }
+  const int l = (int)(i - s * num_levels);
+  float p[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) p[d] = __ldg(pos + s * D + d);
+  out[i] = encode_level<D>(table, p, load_level(levels, l), hash_mask,
+                           hash_add != 0);
+}
+
+// Adds the corner payloads w_c * g of one (sample, level) into `grad`, the
+// level's first row, with vector atomics. Called by every lane of a full
+// warp, all at the same level; lanes past the last sample come with
+// valid = false.
+// Lanes in one cell (all D integer corner coordinates equal) have the same
+// eight rows: when each such group is a run of adjacent lanes, as
+// ray-ordered samples give, the run sums its payloads with shuffles and its
+// lowest lane adds them; any other grouping adds lane by lane.
+template <int D>
+__device__ __forceinline__ void scatter_level(const float* __restrict__ pos,
+                                              int64_t s, bool valid,
+                                              float2 g, const LevelRow& lv,
+                                              uint32_t hash_mask,
+                                              bool hash_add, float2* grad) {
+  constexpr int C = 1 << D;
+  const unsigned lane = threadIdx.x & 31u;
+  const bool nz = valid && (g.x != 0.0f || g.y != 0.0f);
+  const unsigned nz_lanes = __ballot_sync(kFull, nz);
+  if (nz_lanes == 0) return;  // the whole warp adds only zeros
+  uint32_t x0[D], row[C];
+  float frac[D], w[C];
+  if (valid) {
+    float p[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) p[d] = __ldg(pos + s * D + d);
+    locate<D>(p, lv, x0, frac);
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      x0[d] = ~0u;
+      frac[d] = 0.0f;
+    }
+  }
+  corners<D>(x0, frac, lv, hash_mask, hash_add, row, w);
+  float2 v[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    v[c] = make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y));
+  }
+  unsigned m = __match_any_sync(
+      kFull, ((unsigned long long)x0[D > 1 ? 1 : 0] << 32) | x0[0]);
+  if (D > 2) m &= __match_any_sync(kFull, x0[D - 1]);
+  const unsigned run = m >> (__ffs(m) - 1);
+  const bool combine = !__all_sync(kFull, m == (1u << lane)) &&
+                       __all_sync(kFull, (run & (run + 1)) == 0);
+  if (combine) {
+    // Segmented tree sum over runs: after the step of offset o a lane holds
+    // the sum of its run's lanes in [lane, lane + 2o).
+    const int longest = (int)__reduce_max_sync(kFull, (unsigned)__popc(m));
+    for (int o = 1; o < longest; o <<= 1) {
+      const bool take = lane + o < 32 && ((m >> (lane + o)) & 1u);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float x = __shfl_down_sync(kFull, v[c].x, o);
+        const float y = __shfl_down_sync(kFull, v[c].y, o);
+        if (take) {
+          v[c].x = __fadd_rn(v[c].x, x);
+          v[c].y = __fadd_rn(v[c].y, y);
+        }
+      }
+    }
+    // The run's lowest lane adds, unless every lane of the run was zero.
+    if ((m & ((1u << lane) - 1u)) != 0 || (nz_lanes & m) == 0) return;
+  } else if (!nz) {
+    return;
+  }
+  constexpr int H = C / 2;  // corner c + H is c's x + 1 neighbour
+#pragma unroll
+  for (int c = 0; c < H; ++c) {
+    if ((row[c] ^ row[c + H]) == 1u) {
+      const bool odd = row[c] & 1u;
+      const float2 lo = odd ? v[c + H] : v[c], hi = odd ? v[c] : v[c + H];
+      atomicAdd(reinterpret_cast<float4*>(grad + (row[c] & ~1u)),
+                make_float4(lo.x, lo.y, hi.x, hi.y));
+      continue;
+    }
+    atomicAdd(grad + row[c], v[c]);
+    atomicAdd(grad + row[c + H], v[c + H]);
+  }
+}
+
+// grid (ceil(n / kThreads), L): one sample per thread at level blockIdx.y;
+// vector atomics into the L2.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
 hashgrid_bwd_kernel(const float* __restrict__ pos,
                     const float2* __restrict__ grad_out,
                     float2* __restrict__ grad_table, int64_t n,
                     int num_levels, uint32_t hash_mask, int hash_add,
                     const int4* __restrict__ levels) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * num_levels) return;
-  const int64_t s = i / num_levels;
-  const int l = (int)(i - s * num_levels);
+  const int l = blockIdx.y;
   const LevelRow lv = load_level(levels, l);
-  uint32_t row[1 << D];
-  float w[1 << D];
-  level_corners<D>(pos + s * D, lv, hash_mask, hash_add != 0, row, w);
-  const float2 g = __ldg(grad_out + i);
-#pragma unroll
-  for (int c = 0; c < (1 << D); ++c) {
-    atomic_add2(grad_table + row[c],
-                make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y)));
-  }
+  const int64_t s = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = s < n;
+  const float2 g = valid ? __ldg(grad_out + s * num_levels + l)
+                         : make_float2(0.0f, 0.0f);
+  scatter_level<D>(pos, s, valid, g, lv, hash_mask, hash_add != 0,
+                   grad_table + lv.offset);
 }
 
-constexpr int kThreads = 256;
-
-unsigned int num_blocks(int64_t n, int num_levels) {
-  return (unsigned int)((n * num_levels + kThreads - 1) / kThreads);
+unsigned int blocks_for(int64_t n) {
+  return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace
 
-// table: [rows, 2] fp32; pos: [n, 3] fp32; out: [n, num_levels, 2] fp32;
-// levels: [num_levels, 8] int32 device table. num_dims must be 3 (the
-// 2-D grids of the HA-NeRF mask are not ported). Returns a cudaError_t.
+// table: [rows, 2] fp32, 16-byte aligned; pos: [n, 3] fp32; out:
+// [n, num_levels, 2] fp32; levels: [num_levels, 8] int32 device table.
+// num_dims must be 3 (the 2-D grids of the HA-NeRF mask are not ported).
+// Returns a cudaError_t.
 extern "C" int hashgrid_fwd(const float* table, const float* pos, float* out,
                             int64_t n, int num_levels, int num_dims,
                             uint32_t hash_mask, int hash_add,
                             const int32_t* levels, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = num_blocks(n, num_levels);
-  const float2* t2 = (const float2*)table;
-  float2* o2 = (float2*)out;
-  const int4* lt = (const int4*)levels;
-  if (num_dims == 3) {
-    hashgrid_fwd_kernel<3><<<blocks, kThreads, 0, st>>>(
-        t2, pos, o2, n, num_levels, hash_mask, hash_add, lt);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (num_dims != 3) return (int)cudaErrorInvalidValue;
+  hashgrid_fwd_kernel<3><<<blocks_for(n * num_levels), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (const float2*)table, pos, (float2*)out, n, num_levels, hash_mask,
+      hash_add, (const int4*)levels);
   return (int)cudaGetLastError();
 }
 
 // pos: [n, 3] fp32; grad_out: [n, num_levels, 2] fp32; grad_table:
-// [rows, 2] fp32, zeroed by the caller. num_dims must be 3. Returns a
+// [rows, 2] fp32, 16-byte aligned and zeroed by the caller; levels:
+// [num_levels, 8] int32 device table. num_dims must be 3. Returns a
 // cudaError_t.
 extern "C" int hashgrid_bwd(const float* pos, const float* grad_out,
                             float* grad_table, int64_t n, int num_levels,
                             int num_dims, uint32_t hash_mask, int hash_add,
                             const int32_t* levels, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = num_blocks(n, num_levels);
-  const float2* g2 = (const float2*)grad_out;
-  float2* gt2 = (float2*)grad_table;
-  const int4* lt = (const int4*)levels;
-  if (num_dims == 3) {
-    hashgrid_bwd_kernel<3><<<blocks, kThreads, 0, st>>>(
-        pos, g2, gt2, n, num_levels, hash_mask, hash_add, lt);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (num_dims != 3) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(n), num_levels);
+  hashgrid_bwd_kernel<3><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      pos, (const float2*)grad_out, (float2*)grad_table, n, num_levels,
+      hash_mask, hash_add, (const int4*)levels);
   return (int)cudaGetLastError();
 }

@@ -206,8 +206,8 @@ def hashgrid_encode_plain(table: torch.Tensor, positions: torch.Tensor,
     return torch.stack(outs, dim=1).reshape(lead + (spec.output_dim,))
 
 
-def check_kernel_args(spec: HashGridSpec, **tensors: torch.Tensor) -> None:
-    """Device, dtype, contiguity and layout checks shared by the wrappers."""
+def check_devices(**tensors: torch.Tensor) -> None:
+    """Every tensor on one CUDA device."""
     device = None
     for name, t in tensors.items():
         if not t.is_cuda:
@@ -215,10 +215,21 @@ def check_kernel_args(spec: HashGridSpec, **tensors: torch.Tensor) -> None:
         if device is not None and t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         device = t.device
+
+
+def check_kernel_args(spec: HashGridSpec, aligned: Tuple[str, ...] = (),
+                      **tensors: torch.Tensor) -> None:
+    """Dtype, contiguity, alignment and spec checks of the kernels'
+    arguments. The tensors named in `aligned` (the table, the table
+    gradient) are read or added as 16-byte row pairs, so they must start on
+    16 bytes: a view from an odd row would fault on the card."""
+    for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if spec.features_per_level != 2:
         raise ValueError("the kernels take features_per_level == 2")
     if spec.num_dims != 3:
@@ -228,6 +239,22 @@ def check_kernel_args(spec: HashGridSpec, **tensors: torch.Tensor) -> None:
         raise ValueError("table rows must fit int32")
 
 
+def launch_encode(lib, table: torch.Tensor, positions: torch.Tensor,
+                  out: torch.Tensor, spec: HashGridSpec) -> None:
+    """One call of a kernel library's `hashgrid_fwd` into `out`; raises on
+    bad arguments or a launch error."""
+    check_kernel_args(spec, aligned=("table",), table=table,
+                      positions=positions, out=out)
+    with torch.cuda.device(table.device):
+        status = lib.hashgrid_fwd(
+            table.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            positions.numel() // spec.num_dims, spec.num_levels,
+            spec.num_dims, spec.table_size - 1, int(spec.hash_impl == "add"),
+            device_level_table(spec, table.device).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "hashgrid_fwd")
+
+
 def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
                  spec: HashGridSpec) -> torch.Tensor:
     """Encode without autograd: the CUDA kernel for CUDA tensors, the plain
@@ -235,26 +262,16 @@ def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
     if not table.is_cuda and not positions.is_cuda:
         with torch.no_grad():
             return hashgrid_encode_plain(table, positions, spec)
-    check_kernel_args(spec, table=table, positions=positions)
+    check_devices(table=table, positions=positions)
     if table.numel() != spec.num_rows * spec.features_per_level:
         raise ValueError(f"table has {table.numel()} values, spec needs "
                          f"{spec.num_rows * spec.features_per_level}")
     if positions.shape[-1] != spec.num_dims:
         raise ValueError(f"positions must end in {spec.num_dims} dims")
-    lead = positions.shape[:-1]
-    n = positions.numel() // spec.num_dims
-    out = torch.empty(lead + (spec.output_dim,), dtype=torch.float32,
-                      device=table.device)
-    levels = device_level_table(spec, table.device)
-    lib = kernels.load()
-    with torch.cuda.device(table.device):
-        status = lib.hashgrid_fwd(
-            table.data_ptr(), positions.data_ptr(), out.data_ptr(), n,
-            spec.num_levels, spec.num_dims, spec.table_size - 1,
-            int(spec.hash_impl == "add"), levels.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(status, "hashgrid_fwd")
-    if n:
+    out = torch.empty(positions.shape[:-1] + (spec.output_dim,),
+                      dtype=torch.float32, device=table.device)
+    launch_encode(kernels.load(), table, positions, out, spec)
+    if out.numel():
         hashgrid_fwd.launches += 1
     return out
 

@@ -4,8 +4,10 @@ Twin of nerf_hugs_tpu/ops/hashgrid_bwd.py, which sorts the 2^d * n corner
 entries by row and segment-sums them with one-hot matmuls, a TPU
 workaround for its slow scatter. Here the CUDA kernel (csrc/hashgrid.cu,
 `hashgrid_bwd`) recomputes each sample's corner rows and weights from the
-positions and adds w * dL/dfeature into the fp32 gradient with float2
-atomics; the plain version does the same with `index_add_`.
+positions and adds w * dL/dfeature into the fp32 gradient: level-major, with
+a warp's same-cell payloads summed before one float2 atomic, a float4 atomic
+for an aligned pair of x-corner rows, and nothing issued for a zero
+dL/dfeature. The plain version does the same with `index_add_`.
 
 The payload stays fp32: this is the JAX package's `bwd_dtype='float32'`
 mode, not its bf16 default (ROADMAP.md Queue 3).
@@ -16,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from nerf_hugs_torch.ops import kernels
-from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_kernel_args,
+from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_devices,
+                                          check_kernel_args,
                                           corner_rows_level,
                                           device_level_table)
 
@@ -39,13 +42,29 @@ def hashgrid_table_grad_plain(positions: torch.Tensor, grad_out: torch.Tensor,
     return out.reshape(-1)
 
 
+def launch_table_grad(lib, positions: torch.Tensor, grad_out: torch.Tensor,
+                      grad_table: torch.Tensor, spec: HashGridSpec) -> None:
+    """One call of a kernel library's `hashgrid_bwd`, adding into the zeroed
+    `grad_table`; raises on bad arguments or a launch error."""
+    check_kernel_args(spec, aligned=("grad_table",), positions=positions,
+                      grad_out=grad_out, grad_table=grad_table)
+    with torch.cuda.device(positions.device):
+        status = lib.hashgrid_bwd(
+            positions.data_ptr(), grad_out.data_ptr(), grad_table.data_ptr(),
+            positions.numel() // spec.num_dims, spec.num_levels,
+            spec.num_dims, spec.table_size - 1, int(spec.hash_impl == "add"),
+            device_level_table(spec, positions.device).data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "hashgrid_bwd")
+
+
 def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
                         spec: HashGridSpec) -> torch.Tensor:
     """Table gradient: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if not positions.is_cuda and not grad_out.is_cuda:
         return hashgrid_table_grad_plain(positions, grad_out, spec)
-    check_kernel_args(spec, positions=positions, grad_out=grad_out)
+    check_devices(positions=positions, grad_out=grad_out)
     n = positions.numel() // spec.num_dims
     if positions.shape[-1] != spec.num_dims \
             or grad_out.numel() != n * spec.output_dim:
@@ -53,15 +72,7 @@ def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
                          f"{tuple(grad_out.shape)} do not match the spec")
     grad_table = torch.zeros(spec.num_rows * spec.features_per_level,
                              dtype=torch.float32, device=positions.device)
-    levels = device_level_table(spec, positions.device)
-    lib = kernels.load()
-    with torch.cuda.device(positions.device):
-        status = lib.hashgrid_bwd(
-            positions.data_ptr(), grad_out.data_ptr(), grad_table.data_ptr(),
-            n, spec.num_levels, spec.num_dims, spec.table_size - 1,
-            int(spec.hash_impl == "add"), levels.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    kernels.check(status, "hashgrid_bwd")
+    launch_table_grad(kernels.load(), positions, grad_out, grad_table, spec)
     if n:
         hashgrid_table_grad.launches += 1
     return grad_table
