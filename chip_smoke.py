@@ -30,28 +30,51 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. a small model on the card (kernels) against the same weights on the
      CPU (plain versions), loss and every parameter gradient, with the
      Dense MLPs and with enable_tcnn_mlp on for the field and the proposal;
+  3b. the d = 2 hash-grid kernels (HA-NeRF's implicit mask: 16 levels of
+     2^19 rows, resolution 16 to 2048) against their plain versions at the
+     mask's spec, for both hash_impls, on [16384, 2] pixel-centre positions
+     of 64 patches of 16x16 pixels, on 2^20 uniform positions plus exact-1.0
+     edges and on the 2-D adversarial sets, then timed at n = 16384 (the
+     main path's: one position per ray) and 2^20;
   6. the hash-grid kernels on the main path's own inputs: one batch of
      compute_loss + backward through the full-width kubric_nerfacto_base
-     model of phase 7 on the card, with hooks on the field's and the
-     proposal's HashGridEncoding capturing the grid positions and output
-     gradients they receive; both kernels checked against their plain
-     versions on them and timed, with the share of out-of-box samples and
-     of zero-gradient (sample, level) pairs;
+     model of phase 7, and through the full-width HA-NeRF model of phase
+     10, on the card, with hooks on the field's and the proposal's
+     HashGridEncoding (and on the HA-NeRF model's implicit_mask.hashgrid)
+     capturing the grid positions and output gradients they receive; the
+     kernels checked against their plain versions on them and timed, with
+     the share of out-of-box samples and of zero-gradient (sample, level)
+     pairs;
   7. 8 train steps of configs/nerfacto/kubric_nerfacto_base.yml at full
-     model width on a procedural scene through `nerf_hugs_torch.train.main`,
-     with the hash-grid kernels' launch counters read around the run;
+     model width through `nerf_hugs_torch.train.main` on a scene written in
+     the kubric layout (32 train and 4 test frames of the procedural sphere
+     world at 256x256 in rgb/2x/, one lens with small radial and tangential
+     distortion, an opaque random square in each train frame) and read by
+     the kubric loader, with the hash-grid kernels' launch counters read
+     around the run;
   8. the same 8 steps with enable_tcnn_mlp on for the field and the
-     proposal, then `nerf_hugs_torch.eval.main` on its checkpoint (2 test
-     images of 256x256, 4 render chunks each) with the fused-MLP and
-     hash-grid launch counters read around the eval, then the scoring CLI
-     over the test_preds/ PNGs the eval wrote;
+     proposal on the procedural `synthetic` scene, then
+     `nerf_hugs_torch.eval.main` on its checkpoint (2 test images of
+     256x256, 4 render chunks each) with the fused-MLP and hash-grid launch
+     counters read around the eval, then the scoring CLI over the
+     test_preds/ PNGs the eval wrote;
   9. the planar-accumulate kernel against its plain version on the gathers
      of n = 2^21 samples from dense levels of 81^3 and 127^3 rows, and on a
      ragged span of them (within 1e-5 absolute), with timings, then the
      microbenchmark `nerf_hugs_torch.tools.bench_fwd_copies` through its
      entry point at n = 2^21, with the kernel's launch counter read around
-     it.
-Beside each timed kernel it prints its bound: the least time the card could
+     it;
+  10. HA-NeRF: 8 train steps of configs/nerfacto/distractor_nerfacto_hanerf
+     .yml, its model section unchanged (appearance and transient
+     embeddings, two proposal nets, the 2-D implicit mask, 512 + 256 + 128
+     samples per ray), on the kubric scene of phase 7 (only the base
+     section's data and cadence keys change), then
+     `nerf_hugs_torch.eval.main` on 2 test images, with every launch
+     counter read around each; the d = 2 kernels must launch in both.
+Each hash-grid timing line also gives the kernels' own device time from a
+torch.profiler trace: at the mask's 16384 positions the CUDA events around
+one wrapper call mostly see the host's launch path. Beside each timed
+kernel it prints its bound: the least time the card could
 take, the larger of the bytes it must move (each input read once, each
 output written once) over the memory rate and its operations over the peak
 rate for their type (H100 SXM data sheet), and, where one PyTorch call
@@ -118,6 +141,23 @@ def median_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, kernel: str, runs: int = 20):
+    """Mean device time per call of `fn` of the CUDA kernels whose name
+    holds `kernel`, from torch.profiler's trace (None where it recorded no
+    device time): the kernel alone, without the host's launch path that
+    CUDA events around a short kernel also see."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if kernel in e.key)
+    return total / runs / 1e3 if total > 0 else None
+
+
 def bound(nbytes: float, flops: float, dtype: str = "float32"):
     """(least ms, what sets it): bytes over the memory rate against
     operations over the peak rate of their type."""
@@ -162,7 +202,8 @@ def library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g):
     kernel's function, fed the corner rows and weights computed beforehand
     (outside the timing): `embedding_bag` with per-sample weights for the
     forward's weighted gather, `index_add_` for the table gradient's
-    scatter. Each is checked against its kernel; returns their times."""
+    scatter. Each is checked against its kernel; returns their times and
+    the number of distinct table rows the samples touch."""
     pos = p.reshape(-1, spec.num_dims)
     rows, weights = [], []
     for lvl in range(spec.num_levels):
@@ -187,7 +228,8 @@ def library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g):
     check(fwd_rel <= 1e-5 and bwd_rel <= 1e-5,
           f"the library yardsticks disagree with the kernels: {fwd_rel}, "
           f"{bwd_rel}")
-    return {"fwd_library": median_ms(fwd), "bwd_library": median_ms(bwd)}
+    return {"fwd_library": median_ms(fwd), "bwd_library": median_ms(bwd),
+            "rows_touched": int(torch.unique(keys).numel())}
 
 
 def time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g, label):
@@ -204,43 +246,61 @@ def time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g, label):
     }
     t.update(library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p,
                               g))
-    # Both kernels move the positions, the whole table (these samples touch
-    # most of its rows) and a [n, L*F] array once; per sample and level the
-    # fp32 work is 16 products of corner weights and 32 operations of the
-    # weighted sums.
+    t["fwd_device"] = device_ms(
+        torch, lambda: hashgrid.hashgrid_fwd(table, p, spec),
+        "hashgrid_fwd_kernel")
+    t["bwd_device"] = device_ms(
+        torch, lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec),
+        "hashgrid_bwd_kernel")
+    shown = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"
+    # Each kernel reads the positions and the [n, L*F] array (output
+    # gradient) or writes it (features) once. The forward reads the table
+    # rows these samples touch; the table gradient writes the whole dense
+    # gradient. Per sample and level the fp32 work is (d - 1) products for
+    # each of the 2^d corner weights and 4 operations per corner of the
+    # weighted sums (48 at d = 3, 20 at d = 2).
     n = p.numel() // spec.num_dims
-    t["bound_ms"], t["bound_by"] = bound(nbytes(table, p, g),
-                                         48 * n * spec.num_levels)
+    corners = 2 ** spec.num_dims
+    flops = (spec.num_dims - 1 + 4) * corners * n * spec.num_levels
+    row_bytes = spec.features_per_level * table.element_size()
+    fwd_bytes = nbytes(p, g) + t["rows_touched"] * row_bytes
+    bwd_bytes = nbytes(p, g, table)
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(fwd_bytes, flops)
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(bwd_bytes, flops)
     print(f"time  {label}, {n} samples x {spec.num_levels} levels: fwd "
           f"{t['fwd']:.3f} ms (plain {t['fwd_plain']:.3f}, embedding_bag "
-          f"{t['fwd_library']:.3f})  table-grad {t['bwd']:.3f} ms (plain "
-          f"{t['bwd_plain']:.3f}, index_add_ {t['bwd_library']:.3f}); bound "
-          f"of each {t['bound_ms']:.3f} ms ({t['bound_by']}, "
-          f"{nbytes(table, p, g) / 1e6:.1f} MB)", flush=True)
+          f"{t['fwd_library']:.3f}; bound {t['fwd_bound_ms']:.4f} ms, "
+          f"{t['fwd_bound_by']}, {fwd_bytes / 1e6:.1f} MB with "
+          f"{t['rows_touched']} of {spec.num_rows} rows)  table-grad "
+          f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}, index_add_ "
+          f"{t['bwd_library']:.3f}; bound {t['bwd_bound_ms']:.4f} ms, "
+          f"{t['bwd_bound_by']}, {bwd_bytes / 1e6:.1f} MB); kernels alone "
+          f"on the device (profiler): fwd {shown(t['fwd_device'])}, "
+          f"table-grad {shown(t['bwd_device'])}", flush=True)
     return t
 
 
-def adversarial_sets(torch, dev, gen):
-    """[(label, positions [ADVERSARIAL_N, 3], zero-gradient mask [n])]:
+def adversarial_sets(torch, dev, gen, d: int = 3):
+    """[(label, positions [ADVERSARIAL_N, d], zero-gradient mask [n])]:
     the cases that stress the kernels' row combining and zero skipping."""
     n = ADVERSARIAL_N
     lane = torch.arange(n, device=dev) % 32
-    a = torch.tensor([0.3, 0.6, 0.2], device=dev).expand(n, 3)
-    b = torch.tensor([0.7, 0.1, 0.9], device=dev).expand(n, 3)
-    origin = torch.zeros((n, 3), device=dev)
+    a = torch.tensor([0.3, 0.6, 0.2][:d], device=dev).expand(n, d)
+    b = torch.tensor([0.7, 0.1, 0.9][:d], device=dev).expand(n, d)
+    origin = torch.zeros((n, d), device=dev)
     none = torch.zeros(n, dtype=torch.bool, device=dev)
     half = torch.rand(n, generator=gen, device=dev) < 0.5
-    uniform = torch.rand((n, 3), generator=gen, device=dev)
-    # Rays of 128 ordered samples from a point in the box; the samples that
-    # leave the box collapse to the origin with a zero gradient, as the
-    # model's out-of-box samples do.
-    rays = -(-n // 128)
-    start = torch.rand((rays, 1, 3), generator=gen, device=dev)
+    uniform = torch.rand((n, d), generator=gen, device=dev)
+    # Lines of 128 ordered samples from a point in the box (rays, at d =
+    # 3); the samples that leave the box collapse to the origin with a zero
+    # gradient, as the model's out-of-box samples do.
+    lines = -(-n // 128)
+    start = torch.rand((lines, 1, d), generator=gen, device=dev)
     direction = torch.nn.functional.normalize(
-        torch.randn((rays, 1, 3), generator=gen, device=dev), dim=-1)
+        torch.randn((lines, 1, d), generator=gen, device=dev), dim=-1)
     t = torch.linspace(0.0, 1.5, 128, device=dev)[None, :, None]
-    ray_pos = (start + direction * t).reshape(-1, 3)[:n]
-    inside = ((ray_pos >= 0) & (ray_pos <= 1)).all(-1)
+    line_pos = (start + direction * t).reshape(-1, d)[:n]
+    inside = ((line_pos >= 0) & (line_pos <= 1)).all(-1)
     return [
         ("every sample in one cell", a.contiguous(), none),
         ("every sample at the origin, zero gradient", origin, ~none),
@@ -250,8 +310,8 @@ def adversarial_sets(torch, dev, gen):
          torch.where((lane < 16)[:, None], a, b), none),
         ("warps split between two cells, alternating lanes",
          torch.where((lane % 2 == 0)[:, None], a, b), none),
-        ("ray-ordered, out-of-box tails at the origin with zero gradient",
-         (ray_pos * inside[:, None]).contiguous(), ~inside),
+        ("ordered along lines, out-of-box tails at the origin with zero "
+         "gradient", (line_pos * inside[:, None]).contiguous(), ~inside),
     ]
 
 
@@ -303,6 +363,59 @@ def kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
             for fwd_abs, bwd_abs in errs:
                 worst["fwd"] = max(worst["fwd"], fwd_abs)
                 worst["bwd"] = max(worst["bwd"], bwd_abs)
+    return worst, timings
+
+
+def pixel_centres(torch, dev, gen, n: int, size: int = 256,
+                  patch: int = 16):
+    """[n, 2] pix_coords of n // patch^2 random patches of patch x patch
+    neighbouring pixels in size x size images, as the patch sampler hands
+    them to the implicit mask."""
+    d = torch.arange(patch, device=dev)
+    offs = torch.stack(torch.meshgrid(d, d, indexing="xy"), -1).reshape(
+        -1, 2)
+    corner = torch.randint(0, size - patch + 1, (n // patch ** 2, 1, 2),
+                           generator=gen, device=dev)
+    return ((corner + offs).reshape(-1, 2).float() + 0.5) / size
+
+
+def mask_kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
+    """Phase 3b: the d = 2 kernels against their plain versions at the
+    implicit mask's spec on pixel-centre, uniform, edge and adversarial
+    sets; returns the worst errors and the timings at n = 16384 (pixel
+    centres, the main path's shape) and 2^20 (uniform)."""
+    from nerf_hugs_torch.models.nerfacto import MASK_GRID
+    from nerf_hugs_torch.tools.hashgrid_inputs import MASK_N
+    gen = torch.Generator(device=dev).manual_seed(3)
+    edges = torch.tensor([[1.0, 1.0], [1.0, 0.3], [0.3, 1.0], [0.0, 0.0],
+                          [1.0, 0.0]], device=dev)
+    sets = [(f"[{MASK_N}, 2] pixel centres of 16x16 patches",
+             pixel_centres(torch, dev, gen, MASK_N), None),
+            (f"{(1 << 20) + 5} positions with exact-1.0 edges",
+             torch.cat([torch.rand((1 << 20, 2), generator=gen, device=dev),
+                        edges]), None)]
+    sets += adversarial_sets(torch, dev, gen, d=2)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    timings = {}
+    for impl in ("xor", "add"):
+        spec = dataclasses.replace(MASK_GRID, hash_impl=impl)
+        table = torch.rand(spec.num_rows * 2, generator=gen,
+                           device=dev) * 2 - 1
+        for label, p, zero in sets:
+            g = torch.randn((p.shape[0], spec.output_dim), generator=gen,
+                            device=dev)
+            if zero is not None:
+                g = g.masked_fill(zero[:, None], 0.0)
+            fwd_abs, bwd_abs = compare(torch, hashgrid, hashgrid_bwd, spec,
+                                       table, p, g, f"mask 2-D {impl}, "
+                                       f"{label}")
+            worst = {"fwd": max(worst["fwd"], fwd_abs),
+                     "bwd": max(worst["bwd"], bwd_abs)}
+            if impl == "xor" and zero is None:
+                n = p.shape[0]
+                timings[n] = time_hashgrid(torch, hashgrid, hashgrid_bwd,
+                                           spec, table, p, g,
+                                           f"mask 2-D xor, {label}")
     return worst, timings
 
 
@@ -438,30 +551,39 @@ def small_model_phase(torch, tmp, dev, fused: bool):
 
 
 def launch_counters():
+    """{kernel: (wrapper, counter attribute)}: the hash-grid wrappers count
+    their d = 3 and d = 2 kernels apart."""
     from nerf_hugs_torch.ops import accum, fused_mlp, hashgrid, hashgrid_bwd
-    return {"hashgrid_fwd": hashgrid.hashgrid_fwd,
-            "hashgrid_bwd": hashgrid_bwd.hashgrid_table_grad,
-            "fused_mlp_fwd": fused_mlp.fused_mlp_fwd,
-            "planar_accum": accum.planar_accum}
+    return {"hashgrid_fwd": (hashgrid.hashgrid_fwd, "launches"),
+            "hashgrid_bwd": (hashgrid_bwd.hashgrid_table_grad, "launches"),
+            "fused_mlp_fwd": (fused_mlp.fused_mlp_fwd, "launches"),
+            "planar_accum": (accum.planar_accum, "launches"),
+            "hashgrid_fwd_2d": (hashgrid.hashgrid_fwd, "launches_2d"),
+            "hashgrid_bwd_2d": (hashgrid_bwd.hashgrid_table_grad,
+                                "launches_2d")}
 
 
 def reset_launches() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in launch_counters().items()}
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in launch_counters().items()}
 
 
-def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, tmp, dev):
-    """Phase 6: both kernels on the inputs the main path hands them,
-    checked and timed; returns the worst errors."""
+def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, data_dir, dev,
+                   names=("field", "proposal")):
+    """Phase 6: the kernels on the inputs the main path hands the encoders
+    of `names`, checked and timed; returns the worst errors and the
+    timings per encoder."""
     from nerf_hugs_torch.tools.hashgrid_inputs import (
         capture_hashgrid_inputs, capture_shares)
-    captured = capture_hashgrid_inputs(cfg_path, tmp, dev)
+    captured = capture_hashgrid_inputs(cfg_path, data_dir, dev, names)
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = {"fwd": 0.0, "bwd": 0.0}
+    timings = {}
     for name, (spec, p, g) in captured.items():
         print(f"capture {name:8s} {tuple(p.shape)}: "
               + capture_shares(spec, p, g), flush=True)
@@ -471,24 +593,27 @@ def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, tmp, dev):
                                    p, g, f"{name:8s} captured")
         worst = {"fwd": max(worst["fwd"], fwd_abs),
                  "bwd": max(worst["bwd"], bwd_abs)}
-        time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g,
-                      f"{name:8s} captured")
-    return worst
+        timings[name] = time_hashgrid(torch, hashgrid, hashgrid_bwd, spec,
+                                      table, p, g, f"{name:8s} captured")
+    return worst, timings
 
 
-def train_phase(torch, tmp, fused: bool):
-    """8 full-width kubric_nerfacto_base steps through the driver; returns
-    (config path, checkpoint dir, kernel launches)."""
-    from nerf_hugs_torch.tools.hashgrid_inputs import base_yaml
+# The kernels each run must launch, and those it must not.
+DENSE = ("hashgrid_fwd", "hashgrid_bwd")
+FUSED = DENSE + ("fused_mlp_fwd",)
+HANERF = DENSE + ("hashgrid_fwd_2d", "hashgrid_bwd_2d")
+
+
+def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
+                tag: str, expected):
+    """8 full-width steps of `cfg_path` through the driver; checks that
+    every kernel of `expected` launched and no other hash-grid or MLP
+    kernel did; returns the kernel launches."""
     from nerf_hugs_torch.train import main as train_main
-    tag = "fused" if fused else "dense"
-    cfg_path = base_yaml(tmp, fused)
-    save_dir = os.path.join(tmp, "exp", tag)
-
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    train_main(["--config", cfg_path, "--data_dir", tmp, "--save_dir",
+    train_main(["--config", cfg_path, "--data_dir", data_dir, "--save_dir",
                 save_dir, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -497,33 +622,36 @@ def train_phase(torch, tmp, fused: bool):
 
     with open(os.path.join(save_dir, "run_log.log")) as f:
         log = f.read()
-    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)),
+              m.group(4))
              for m in re.finditer(r"\[train\] (\d+)/\d+: loss=(\S+) "
-                                  r"psnr=\S+ lr=\S+ (\S+) steps/s", log)]
+                                  r"psnr=\S+ lr=\S+ (\S+) steps/s \S+ "
+                                  r"rays/s(.*)", log)]
     evals = re.findall(r"\[train\] \d+: eval psnr=(\S+)", log)
-    check([s for s, _, _ in steps] == list(range(1, 9)),
+    check([s[0] for s in steps] == list(range(1, 9)),
           f"expected print lines for steps 1..8, got {steps}")
-    check(all(math.isfinite(loss) for _, loss, _ in steps),
+    check(all(math.isfinite(s[1]) for s in steps),
           "non-finite training loss")
-    expected = ["hashgrid_fwd", "hashgrid_bwd"] + (
-        ["fused_mlp_fwd"] if fused else [])
+    terms = [dict(t.split("=") for t in s[3].split()) for s in steps]
+    check(all(math.isfinite(float(v)) for t in terms for v in t.values()),
+          f"non-finite loss terms: {terms}")
     check(all(launches[k] > 0 for k in expected),
           f"a kernel was not launched during training: {launches}")
-    check(fused or launches["fused_mlp_fwd"] == 0,
-          f"the Dense run launched the fused MLP: {launches}")
+    check(all(launches[k] == 0 for k in FUSED + HANERF if k not in expected),
+          f"the {tag} run launched a kernel off its path: {launches}")
     check(os.path.exists(os.path.join(save_dir, "checkpoint_8.pt")),
           "no step-8 checkpoint")
     check(len(evals) == 1 and math.isfinite(float(evals[0])),
           "the final eval printed no PSNR")
     # Steps 2..8, each timed from the previous print to its own (the
     # driver synchronises on the stats it prints).
-    rate = 7 / sum(1 / r for _, _, r in steps[1:])
-    print(f"train ({tag} MLPs): 8 steps in {wall:.1f} s; steps/s after the "
+    rate = 7 / sum(1 / s[2] for s in steps[1:])
+    print(f"train ({tag}): 8 steps in {wall:.1f} s; steps/s after the "
           f"first step {rate:.3f} ({rate * 16384:.0f} rays/s); losses "
-          f"{[round(loss, 5) for _, loss, _ in steps]}; eval psnr "
-          f"{evals[0]}; peak device memory {peak / 2**30:.2f} GiB; "
-          f"launches {launches}", flush=True)
-    return cfg_path, save_dir, launches
+          f"{[round(s[1], 5) for s in steps]}; step-8 terms {terms[-1]}; "
+          f"eval psnr {evals[0]}; peak device memory {peak / 2**30:.2f} "
+          f"GiB; launches {launches}", flush=True)
+    return launches, terms
 
 
 def png_psnr(pred_path: str, gt_path: str) -> float:
@@ -535,19 +663,21 @@ def png_psnr(pred_path: str, gt_path: str) -> float:
     return float(-10.0 * np.log10(np.mean((pred - gt) ** 2)))
 
 
-def eval_phase(torch, cfg_path: str, save_dir: str):
-    """nerf_hugs_torch.eval on the fused run's checkpoint, then the scoring
-    CLI over the PNGs it wrote; returns the eval's kernel launches."""
+def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
+               tag: str, expected, score: bool):
+    """nerf_hugs_torch.eval on a run's checkpoint (checks that the forward
+    kernels of `expected` launched), then, with `score`, the scoring CLI
+    over the PNGs it wrote; returns the eval's kernel launches."""
     from nerf_hugs_torch.eval import main as eval_main
     from nerf_hugs_torch.metrics import main as score_main
     reset_launches()
     t0 = time.time()
-    eval_main(["--config", cfg_path, "--data_dir", os.path.dirname(cfg_path),
+    eval_main(["--config", cfg_path, "--data_dir", data_dir,
                "--save_dir", save_dir, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
-    check(launches["fused_mlp_fwd"] > 0 and launches["hashgrid_fwd"] > 0,
+    check(all(launches[k] > 0 for k in expected if "bwd" not in k),
           f"eval did not run through the kernels: {launches}")
 
     preds = os.path.join(save_dir, "test_preds")
@@ -563,9 +693,11 @@ def eval_phase(torch, cfg_path: str, save_dir: str):
           f"eval metrics out of range: {mean}")
     with open(os.path.join(save_dir, "run_log.log")) as f:
         renders = re.findall(r"image \d+/\d+ rendered in (\S+)s", f.read())
-    print(f"eval (fused MLPs): 2 images of 256x256 in {wall:.1f} s "
-          f"(render {', '.join(renders)} s); mean {mean}; launches "
+    print(f"eval ({tag}): 2 images of 256x256 in {wall:.1f} s (render "
+          f"{', '.join(renders)} s per image); mean {mean}; launches "
           f"{launches}", flush=True)
+    if not score:
+        return launches
 
     out_dir = os.path.join(os.path.dirname(save_dir), "scores")
     score_main(["--experiment_dir", os.path.dirname(save_dir),
@@ -671,7 +803,8 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_hugs_torch.ops import fused_mlp, hashgrid, hashgrid_bwd, kernels
-    from nerf_hugs_torch.tools.hashgrid_inputs import base_yaml
+    from nerf_hugs_torch.tools.hashgrid_inputs import (
+        MASK_N, base_yaml, hanerf_yaml, write_kubric_scene)
     from nerf_hugs_torch.utils.device import pin_fp32_precision
     pin_fp32_precision()
     kernels.load()
@@ -683,21 +816,47 @@ def main() -> None:
                 print(f"ptxas {src}: {line.strip()}", flush=True)
 
     worst, timings = kernel_phase(torch, hashgrid, hashgrid_bwd, dev)
+    worst_2d, timings_2d = mask_kernel_phase(torch, hashgrid, hashgrid_bwd,
+                                             dev)
     fused_worst, fused_timings = fused_mlp_phase(torch, fused_mlp, dev)
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        scene = write_kubric_scene(os.path.join(tmp, "kubric"))
+        print(f"scene: 32 train + 4 test kubric frames of 256x256 written "
+              f"in {time.time() - t0:.1f} s", flush=True)
         small_model_phase(torch, tmp, dev, fused=False)
         small_model_phase(torch, tmp, dev, fused=True)
-        captured_worst = captured_phase(torch, hashgrid, hashgrid_bwd,
-                                        base_yaml(tmp, fused=False), tmp, dev)
+        dense_cfg = base_yaml(tmp, fused=False, scene="kubric")
+        hanerf_cfg = hanerf_yaml(tmp)
+        captured_worst, _ = captured_phase(torch, hashgrid, hashgrid_bwd,
+                                           dense_cfg, scene, dev)
         worst = {k: max(v, captured_worst[k]) for k, v in worst.items()}
-        _, _, launches = train_phase(torch, tmp, fused=False)
-        cfg_path, save_dir, _ = train_phase(torch, tmp, fused=True)
-        eval_launches = eval_phase(torch, cfg_path, save_dir)
+        captured_worst, captured_2d = captured_phase(
+            torch, hashgrid, hashgrid_bwd, hanerf_cfg, scene, dev, ("mask",))
+        worst_2d = {k: max(v, captured_worst[k]) for k, v in worst_2d.items()}
+        launches, _ = train_phase(torch, dense_cfg, scene,
+                                  os.path.join(tmp, "exp", "dense"),
+                                  "Dense MLPs, kubric scene", DENSE)
+        fused_cfg = base_yaml(tmp, fused=True)
+        fused_dir = os.path.join(tmp, "exp", "fused")
+        train_phase(torch, fused_cfg, tmp, fused_dir,
+                    "fused MLPs, synthetic scene", FUSED)
+        eval_launches = eval_phase(torch, fused_cfg, tmp, fused_dir,
+                                   "fused MLPs", FUSED, score=True)
+        hanerf_dir = os.path.join(tmp, "exp", "hanerf")
+        hanerf_launches, terms = train_phase(
+            torch, hanerf_cfg, scene, hanerf_dir, "HA-NeRF, kubric scene",
+            HANERF)
+        check(all(float(t["mask_size"]) > 0 for t in terms),
+              f"the HA-NeRF steps have no mask_size term: {terms}")
+        eval_phase(torch, hanerf_cfg, scene, hanerf_dir, "HA-NeRF", HANERF,
+                   score=False)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")
 
     field = timings["field"]
+    mask = timings_2d[MASK_N]
     head = fused_timings[("field mlp_head", "bfloat16")]
     acc = accum_timings[81]
     print(json.dumps({"kernels": [
@@ -706,14 +865,16 @@ def main() -> None:
          "replaces": "nerf_hugs_tpu/ops/hashgrid.py:448",
          "launches": launches["hashgrid_fwd"], "max_abs_err": worst["fwd"],
          "ms": field["fwd"], "plain_ms": field["fwd_plain"],
-         "bound_ms": field["bound_ms"], "bound_by": field["bound_by"],
+         "bound_ms": field["fwd_bound_ms"],
+         "bound_by": field["fwd_bound_by"],
          "library_ms": field["fwd_library"]},
         {"name": "hashgrid_bwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/hashgrid.cu",
          "replaces": "nerf_hugs_tpu/ops/hashgrid_bwd.py:48",
          "launches": launches["hashgrid_bwd"], "max_abs_err": worst["bwd"],
          "ms": field["bwd"], "plain_ms": field["bwd_plain"],
-         "bound_ms": field["bound_ms"], "bound_by": field["bound_by"],
+         "bound_ms": field["bwd_bound_ms"],
+         "bound_by": field["bwd_bound_by"],
          "library_ms": field["bwd_library"]},
         {"name": "fused_mlp_fwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/fused_mlp.cu",
@@ -729,6 +890,24 @@ def main() -> None:
          "ms": acc["ms"], "plain_ms": acc["plain_ms"],
          "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
          "library_ms": None},
+        {"name": "hashgrid_fwd_2d", "route": "cuda",
+         "source": "nerf_hugs_torch/csrc/hashgrid.cu",
+         "replaces": "nerf_hugs_tpu/ops/hashgrid.py:448",
+         "launches": hanerf_launches["hashgrid_fwd_2d"],
+         "max_abs_err": worst_2d["fwd"], "ms": mask["fwd"],
+         "plain_ms": mask["fwd_plain"],
+         "bound_ms": mask["fwd_bound_ms"],
+         "bound_by": mask["fwd_bound_by"],
+         "library_ms": mask["fwd_library"]},
+        {"name": "hashgrid_bwd_2d", "route": "cuda",
+         "source": "nerf_hugs_torch/csrc/hashgrid.cu",
+         "replaces": "nerf_hugs_tpu/ops/hashgrid_bwd.py:48",
+         "launches": hanerf_launches["hashgrid_bwd_2d"],
+         "max_abs_err": worst_2d["bwd"], "ms": mask["bwd"],
+         "plain_ms": mask["bwd_plain"],
+         "bound_ms": mask["bwd_bound_ms"],
+         "bound_by": mask["bwd_bound_by"],
+         "library_ms": mask["bwd_library"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

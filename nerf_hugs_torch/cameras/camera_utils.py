@@ -1,9 +1,10 @@
 """Pixel -> ray casting on the host, in numpy.
 
 The numpy-only subset of nerf_hugs_tpu/cameras/camera_utils.py that the
-synthetic scene and the patch sampler need (the `xnp=np` path there):
-pinhole intrinsics, lookat poses, pixel grids, perspective ray casting
-without lens distortion or NDC.
+synthetic and kubric scenes and the patch sampler need (the `xnp=np` path
+there): pinhole intrinsics, lookat poses, pixel grids, perspective ray
+casting with OpenCV radial + tangential lens distortion. NDC and fisheye
+cameras wait for the COLMAP loaders (ROADMAP.md Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -45,19 +46,67 @@ def pixel_coordinates(width: int, height: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.meshgrid(np.arange(width), np.arange(height), indexing="xy")
 
 
+def _distortion_residual_and_jacobian(x, y, xd, yd, k1=0.0, k2=0.0, k3=0.0,
+                                      k4=0.0, p1=0.0, p2=0.0):
+    """Residual of the OpenCV radial+tangential model and its 2x2 Jacobian."""
+    r = x * x + y * y
+    d = 1.0 + r * (k1 + r * (k2 + r * (k3 + r * k4)))
+    fx = d * x + 2 * p1 * x * y + p2 * (r + 2 * x * x) - xd
+    fy = d * y + 2 * p2 * x * y + p1 * (r + 2 * y * y) - yd
+    d_r = k1 + r * (2 * k2 + r * (3 * k3 + r * 4 * k4))
+    d_x, d_y = 2 * x * d_r, 2 * y * d_r
+    fx_x = d + d_x * x + 2 * p1 * y + 6 * p2 * x
+    fx_y = d_y * x + 2 * p1 * x + 2 * p2 * y
+    fy_x = d_x * y + 2 * p2 * y + 2 * p1 * x
+    fy_y = d + d_y * y + 2 * p2 * x + 6 * p1 * y
+    return fx, fy, fx_x, fx_y, fy_x, fy_y
+
+
+def radial_and_tangential_undistort(xd, yd, k1=0.0, k2=0.0, k3=0.0, k4=0.0,
+                                    p1=0.0, p2=0.0, eps=1e-9,
+                                    max_iterations=10):
+    """Invert the distortion model with a fixed 10-iteration Newton solve."""
+    x, y = np.array(xd), np.array(yd)
+    for _ in range(max_iterations):
+        fx, fy, fx_x, fx_y, fy_x, fy_y = _distortion_residual_and_jacobian(
+            x, y, xd, yd, k1=k1, k2=k2, k3=k3, k4=k4, p1=p1, p2=p2)
+        denom = fy_x * fx_y - fx_x * fy_y
+        safe = np.abs(denom) > eps
+        x = x + np.where(safe, (fx * fy_y - fy * fx_y) / denom, 0.0)
+        y = y + np.where(safe, (fy * fx_x - fx * fy_x) / denom, 0.0)
+    return x, y
+
+
+def undistorted_grid(pixtocam: np.ndarray, distortion_params: dict,
+                     width: int, height: int) -> np.ndarray:
+    """[height + 1, width + 1, 2]: the undistorted camera-plane (x, y) of
+    every pixel centre of one camera, one column and one row past the last
+    included (the +x and +y neighbours of the cone footprint). A split whose
+    cameras share one pixtocam and lens solves it once; pixels_to_rays then
+    gathers from it instead of solving for every ray."""
+    x, y = pixel_coordinates(width + 1, height + 1)
+    pixel_dirs = np.stack([x + 0.5, y + 0.5, np.ones_like(x)], axis=-1)
+    camera_dirs = np.matmul(pixtocam, pixel_dirs[..., None])[..., 0]
+    return np.stack(radial_and_tangential_undistort(
+        camera_dirs[..., 0], camera_dirs[..., 1], **distortion_params), -1)
+
+
 def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds,
                    distortion_params: Optional[dict] = None,
                    pixtocam_ndc: Optional[np.ndarray] = None,
-                   camtype: ProjectionType = ProjectionType.PERSPECTIVE):
+                   camtype: ProjectionType = ProjectionType.PERSPECTIVE,
+                   undistorted: Optional[np.ndarray] = None):
     """Pixel indices -> (origins, directions, viewdirs, radii).
 
-    Casts through pixel centers; the +x and +y neighbour rays give the
-    pixel footprint from which the cone base radius derives."""
-    if distortion_params is not None or pixtocam_ndc is not None \
-            or camtype != ProjectionType.PERSPECTIVE:
+    Casts through pixel centers, undistorted when `distortion_params`
+    (k1..k4, p1, p2) are given, or gathered from `undistorted` (the
+    undistorted_grid of the cameras' shared pixtocam and lens) when it is;
+    the +x and +y neighbour rays give the pixel footprint from which the
+    cone base radius derives."""
+    if pixtocam_ndc is not None or camtype != ProjectionType.PERSPECTIVE:
         raise NotImplementedError(
-            "lens distortion, NDC and fisheye cameras wait for the remaining "
-            "loaders (ROADMAP.md Queue 1 item 11)")
+            "NDC and fisheye cameras wait for the COLMAP loaders "
+            "(ROADMAP.md Queue 1 item 11b)")
 
     def pix_to_dir(x, y):
         return np.stack([x + 0.5, y + 0.5, np.ones_like(x)], axis=-1)
@@ -69,7 +118,17 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds,
     ], axis=0)
     mat_vec = lambda a, b: np.matmul(a, b[..., None])[..., 0]
 
-    camera_dirs = mat_vec(pixtocams, pixel_dirs)
+    if undistorted is not None:
+        xy = np.stack([undistorted[pix_y_int, pix_x_int],
+                       undistorted[pix_y_int, pix_x_int + 1],
+                       undistorted[pix_y_int + 1, pix_x_int]], axis=0)
+        camera_dirs = np.concatenate([xy, np.ones_like(xy[..., :1])], -1)
+    else:
+        camera_dirs = mat_vec(pixtocams, pixel_dirs)
+        if distortion_params is not None:
+            x, y = radial_and_tangential_undistort(
+                camera_dirs[..., 0], camera_dirs[..., 1], **distortion_params)
+            camera_dirs = np.stack([x, y, np.ones_like(x)], -1)
     # OpenCV -> OpenGL axis flip, then rotate into world space.
     camera_dirs = np.matmul(camera_dirs, np.diag(np.array([1.0, -1.0, -1.0])))
     directions, dx, dy = mat_vec(camtoworlds[..., :3, :3], camera_dirs)
@@ -85,10 +144,11 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds,
 def cast_ray_batch(cameras: Tuple[np.ndarray, ...], pixels: structs.Pixels,
                    heights: np.ndarray, widths: np.ndarray,
                    distortion_params: Optional[dict],
-                   camtype: ProjectionType = ProjectionType.PERSPECTIVE
+                   camtype: ProjectionType = ProjectionType.PERSPECTIVE,
+                   undistorted: Optional[np.ndarray] = None
                    ) -> structs.Rays:
     """Pixels batch + camera table -> Rays batch; per-ray cameras are
-    gathered by pixels.cam_idx."""
+    gathered by pixels.cam_idx (`undistorted`: see pixels_to_rays)."""
     pixtocams, camtoworlds, pixtocam_ndc = cameras
     cam_idx = pixels.cam_idx[..., 0]
     batch_index = lambda arr: arr if arr.ndim == 2 else arr[cam_idx]
@@ -96,7 +156,7 @@ def cast_ray_batch(cameras: Tuple[np.ndarray, ...], pixels: structs.Pixels,
     origins, directions, viewdirs, radii = pixels_to_rays(
         pixels.pix_x_int, pixels.pix_y_int, batch_index(pixtocams),
         batch_index(camtoworlds), distortion_params=distortion_params,
-        pixtocam_ndc=pixtocam_ndc, camtype=camtype)
+        pixtocam_ndc=pixtocam_ndc, camtype=camtype, undistorted=undistorted)
 
     h, w = heights[cam_idx], widths[cam_idx]
     pix_coords = np.stack([

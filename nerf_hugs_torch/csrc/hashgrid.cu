@@ -3,10 +3,13 @@
 // (nerf_hugs_torch/ops/kernels.py).
 //
 // Semantics are tiny-cuda-nn grid.h, as in nerf_hugs_tpu/ops/hashgrid.py:
-// grid coordinate x * scale_l + 0.5, trilinear weights from its fraction,
+// grid coordinate x * scale_l + 0.5, multilinear weights from its fraction,
 // dense levels indexed with strides N_l^d and wrapped by one conditional
 // subtract, hashed levels combined with xor (tcnn) or add, masked to 2^log2.
-// Features per level F = 2, so a table row is one 8-byte float2.
+// Features per level F = 2, so a table row is one 8-byte float2. Both
+// kernels are instantiated for d = 3 (the nerfacto fields, 8 corners) and
+// d = 2 (the HA-NeRF implicit mask on pixel coordinates, 4 corners); the
+// C entry points dispatch on num_dims and refuse any other value.
 //
 // The table is one flat float32 array, levels concatenated in tcnn order;
 // each level starts at a row offset that is a multiple of 8 rows, so with a
@@ -17,12 +20,12 @@
 //
 // hashgrid_fwd replaces the XLA gather encode `_encode_impl`
 // (nerf_hugs_tpu/ops/hashgrid.py:448-537; it has no Pallas source). It is
-// bound by its random row gathers: 8 per (sample, level), 268M at
+// bound by its random row gathers: 2^d per (sample, level), 268M at
 // kubric_nerfacto_base's field, each a 32-byte sector for 8 bytes used,
 // and the tables (182.6 MiB at the field) do not fit the 50 MB L2. A thread
 // takes one (sample, level), sample-major, so neighbouring ray samples
 // share an SM's L1 and a warp's stores are one contiguous run of features.
-// The eight gathers are issued before any is used, and where a cell's two
+// The 2^d gathers are issued before any is used, and where a cell's two
 // x-corners share an aligned 16-byte row pair (dense and additive levels
 // with an even row, xor levels with an even x) one float4 load takes both.
 // The launch bounds keep a full SM of threads (32 registers). Level-major
@@ -50,8 +53,9 @@
 //     (the model collapses out-of-box samples to the origin and masks
 //     their density, so their gradient is exactly zero);
 //   - the lanes of a warp in one cell (equal integer corner, found with
-//     __match_any_sync) sum their eight payloads with shuffles when they
-//     form runs, and one lane issues the atomics;
+//     __match_any_sync) sum their 2^d payloads with shuffles when they
+//     form runs, and one lane issues the atomics (the mask's pixel patches
+//     put whole warps in one cell at its coarse levels);
 //   - where two x-corners share an aligned row pair, one float4 atomic adds
 //     both (sm_90 has vector atomics in global memory).
 // Only the order of the fp32 additions changes. The payload stays fp32, the
@@ -70,7 +74,8 @@ constexpr int kThreads = 256;
 
 // One row of the per-level device table, 8 int32:
 //   [0] scale (float bits)  [1..3] per-dim multiplier: N_l^d on dense
-//   levels, the tcnn primes on hashed ones  [4] level rows
+//   levels, the tcnn primes on hashed ones (column 3 is 0 at d = 2)
+//   [4] level rows
 //   [5] row offset of the level  [6] 1 if dense  [7] unused
 struct LevelRow {
   float scale;
@@ -109,8 +114,8 @@ __device__ __forceinline__ void locate(const float* p, const LevelRow& lv,
   }
 }
 
-// Level-local corner rows and trilinear weights of one cell, in the corner
-// order of HashGridSpec.corner_offsets (dim 0 most significant).
+// Level-local corner rows and multilinear weights of one cell, in the
+// corner order of HashGridSpec.corner_offsets (dim 0 most significant).
 template <int D>
 __device__ __forceinline__ void corners(const uint32_t* x0, const float* frac,
                                         const LevelRow& lv,
@@ -141,7 +146,7 @@ __device__ __forceinline__ void corners(const uint32_t* x0, const float* frac,
   }
 }
 
-// One sample's features at one level: the eight gathers first, then the
+// One sample's features at one level: the 2^D gathers first, then the
 // weighted sum in corner order.
 template <int D>
 __device__ __forceinline__ float2 encode_level(
@@ -208,7 +213,7 @@ hashgrid_fwd_kernel(const float2* __restrict__ table,
 // warp, all at the same level; lanes past the last sample come with
 // valid = false.
 // Lanes in one cell (all D integer corner coordinates equal) have the same
-// eight rows: when each such group is a run of adjacent lanes, as
+// 2^D rows: when each such group is a run of adjacent lanes, as
 // ray-ordered samples give, the run sums its payloads with shuffles and its
 // lowest lane adds them; any other grouping adds lane by lane.
 template <int D>
@@ -307,38 +312,66 @@ unsigned int blocks_for(int64_t n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
+template <int D>
+void launch_fwd(const float* table, const float* pos, float* out, int64_t n,
+                int num_levels, uint32_t hash_mask, int hash_add,
+                const int32_t* levels, cudaStream_t stream) {
+  hashgrid_fwd_kernel<D><<<blocks_for(n * num_levels), kThreads, 0,
+                           stream>>>(
+      (const float2*)table, pos, (float2*)out, n, num_levels, hash_mask,
+      hash_add, (const int4*)levels);
+}
+
+template <int D>
+void launch_bwd(const float* pos, const float* grad_out, float* grad_table,
+                int64_t n, int num_levels, uint32_t hash_mask, int hash_add,
+                const int32_t* levels, cudaStream_t stream) {
+  const dim3 grid(blocks_for(n), num_levels);
+  hashgrid_bwd_kernel<D><<<grid, kThreads, 0, stream>>>(
+      pos, (const float2*)grad_out, (float2*)grad_table, n, num_levels,
+      hash_mask, hash_add, (const int4*)levels);
+}
+
 }  // namespace
 
-// table: [rows, 2] fp32, 16-byte aligned; pos: [n, 3] fp32; out:
+// table: [rows, 2] fp32, 16-byte aligned; pos: [n, num_dims] fp32; out:
 // [n, num_levels, 2] fp32; levels: [num_levels, 8] int32 device table.
-// num_dims must be 3 (the 2-D grids of the HA-NeRF mask are not ported).
-// Returns a cudaError_t.
+// num_dims is 3 (the nerfacto fields) or 2 (the HA-NeRF implicit mask);
+// any other value returns cudaErrorInvalidValue. Returns a cudaError_t.
 extern "C" int hashgrid_fwd(const float* table, const float* pos, float* out,
                             int64_t n, int num_levels, int num_dims,
                             uint32_t hash_mask, int hash_add,
                             const int32_t* levels, void* stream) {
+  if (num_dims != 2 && num_dims != 3) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
-  if (num_dims != 3) return (int)cudaErrorInvalidValue;
-  hashgrid_fwd_kernel<3><<<blocks_for(n * num_levels), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const float2*)table, pos, (float2*)out, n, num_levels, hash_mask,
-      hash_add, (const int4*)levels);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (num_dims == 3) {
+    launch_fwd<3>(table, pos, out, n, num_levels, hash_mask, hash_add,
+                  levels, s);
+  } else {
+    launch_fwd<2>(table, pos, out, n, num_levels, hash_mask, hash_add,
+                  levels, s);
+  }
   return (int)cudaGetLastError();
 }
 
-// pos: [n, 3] fp32; grad_out: [n, num_levels, 2] fp32; grad_table:
+// pos: [n, num_dims] fp32; grad_out: [n, num_levels, 2] fp32; grad_table:
 // [rows, 2] fp32, 16-byte aligned and zeroed by the caller; levels:
-// [num_levels, 8] int32 device table. num_dims must be 3. Returns a
-// cudaError_t.
+// [num_levels, 8] int32 device table. num_dims is 3 or 2, as for
+// hashgrid_fwd. Returns a cudaError_t.
 extern "C" int hashgrid_bwd(const float* pos, const float* grad_out,
                             float* grad_table, int64_t n, int num_levels,
                             int num_dims, uint32_t hash_mask, int hash_add,
                             const int32_t* levels, void* stream) {
+  if (num_dims != 2 && num_dims != 3) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
-  if (num_dims != 3) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for(n), num_levels);
-  hashgrid_bwd_kernel<3><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      pos, (const float2*)grad_out, (float2*)grad_table, n, num_levels,
-      hash_mask, hash_add, (const int4*)levels);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (num_dims == 3) {
+    launch_bwd<3>(pos, grad_out, grad_table, n, num_levels, hash_mask,
+                  hash_add, levels, s);
+  } else {
+    launch_bwd<2>(pos, grad_out, grad_table, n, num_levels, hash_mask,
+                  hash_add, levels, s);
+  }
   return (int)cudaGetLastError();
 }

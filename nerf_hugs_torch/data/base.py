@@ -17,8 +17,11 @@ import threading
 from typing import List, Optional
 
 import numpy as np
+import torch
+from torch.nn import functional as F
 
 from nerf_hugs_torch.cameras import camera_utils
+from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils import structs
 
 
@@ -76,11 +79,16 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         self.cameras = (self.pixtocams, self.camtoworlds, None)
 
         # The native sampler gathers fixed 3-float rgb rows from cameras
-        # that share distortion and projection.
+        # that share distortion (compared as key-sorted items) and
+        # projection.
         self._native = None
-        homogeneous = (len({repr(d) for d in self.distortion_params}) == 1
-                       and len(set(self.camtypes)) == 1
-                       and all(im.shape[-1] == 3 for im in self.images))
+        distortion_key = lambda d: None if d is None else tuple(
+            sorted(d.items()))
+        one_lens = (len({distortion_key(d)
+                         for d in self.distortion_params}) == 1
+                    and len(set(self.camtypes)) == 1)
+        homogeneous = one_lens and all(im.shape[-1] == 3
+                                       for im in self.images)
         if is_training and homogeneous:
             from nerf_hugs_torch.data import native_sampler
             try:
@@ -91,6 +99,17 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
                 self._native = None  # no g++: the numpy path below
             self._native_seed = int(self._rng.integers(0, 2 ** 62))
             self._native_calls = 0
+
+        # Cameras that share one pixtocam, lens and image size (kubric's)
+        # undistort the pixel grid once: the per-ray Newton solve would
+        # otherwise take most of a batch's host time.
+        self._undistorted = None
+        if (one_lens and self.distortion_params[0] is not None
+                and len(set(self.heights)) == len(set(self.widths)) == 1
+                and np.all(self.pixtocams == self.pixtocams[0])):
+            self._undistorted = camera_utils.undistorted_grid(
+                self.pixtocams[0], self.distortion_params[0],
+                int(self.widths[0]), int(self.heights[0]))
 
         self._next_fn = self._next_train if is_training else self._next_test
         # Seed one batch so __next__ cannot race thread startup.
@@ -133,7 +152,8 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
             cam_idx=bscalar(cam_idx).astype(np.int32))
         rays = camera_utils.cast_ray_batch(
             self.cameras, pixels, self.heights, self.widths,
-            self.distortion_params[cam_idx], self.camtypes[cam_idx])
+            self.distortion_params[cam_idx], self.camtypes[cam_idx],
+            self._undistorted)
         return structs.Batch(rays=rays,
                              rgb=self.images[cam_idx][pix_y_int, pix_x_int])
 
@@ -183,7 +203,7 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
             embed_idx=embed_idx[:, None], cam_idx=cam_idx[:, None])
         rays = camera_utils.cast_ray_batch(
             self.cameras, pixels, self.heights, self.widths,
-            self.distortion_params[0], self.camtypes[0])
+            self.distortion_params[0], self.camtypes[0], self._undistorted)
         return structs.Batch(rays=rays, rgb=rgb)
 
     def generate_ray_batch(self, cam_idx: int) -> structs.Batch:
@@ -196,3 +216,18 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         cam_idx = self._test_camera_idx
         self._test_camera_idx = (self._test_camera_idx + 1) % self._n_examples
         return self.generate_ray_batch(cam_idx)
+
+
+def load_static_mask(path: str, height: int, width: int) -> np.ndarray:
+    """A HuGS static-mask PNG as [H, W, 1] float32 in [0, 1], resized
+    bilinearly (half-pixel centres, edge-clamped: OpenCV's INTER_LINEAR,
+    which the JAX loader calls) when its size differs from the image's."""
+    mask = nh_io.load_img(path) / 255.0
+    if mask.ndim == 2:
+        mask = mask[..., None]
+    if mask.shape[:2] != (height, width):
+        t = torch.from_numpy(np.ascontiguousarray(mask, np.float32))
+        mask = F.interpolate(t.permute(2, 0, 1)[None], size=(height, width),
+                             mode="bilinear", align_corners=False
+                             )[0].permute(1, 2, 0).numpy()
+    return mask[..., :1].reshape(height, width, 1).astype(np.float32)

@@ -1,8 +1,9 @@
 """In-memory procedural dataset: lookat cameras around a shaded sphere.
 
-Twin of nerf_hugs_tpu/data/synthetic.py (`Synthetic`): the same images,
-cameras and held-out test views, generated from fixed seeds with no disk
-access, so a NeRF can fit them at any configured resolution.
+Twin of nerf_hugs_tpu/data/synthetic.py (`Synthetic`,
+`SyntheticDistractor`): the same images, cameras, held-out test views and
+distractor squares, generated from fixed seeds with no disk access, so a
+NeRF can fit them at any configured resolution.
 """
 
 from __future__ import annotations
@@ -34,7 +35,11 @@ def _sphere_world_color(origins: np.ndarray, dirs: np.ndarray,
 class Synthetic(base.Dataset):
     """config.synthetic_{num_images,height,width} images (divided by
     config.factor), cameras on a ring at height 1.2 looking at the origin;
-    test views sit between the train azimuths."""
+    test views sit between the train azimuths. With DISTRACTORS (the
+    `synthetic_distractor` loader) every train image gets a random opaque
+    square, a view-inconsistent transient, marked 0 in its static mask."""
+
+    DISTRACTORS = False
 
     def _load_renderings(self, config):
         n = config.synthetic_num_images
@@ -60,9 +65,16 @@ class Synthetic(base.Dataset):
             xg, yg = camera_utils.pixel_coordinates(w, h)
             origins, dirs, _, _ = camera_utils.pixels_to_rays(
                 xg, yg, pixtocam, c2w)
-            self.images.append(_sphere_world_color(origins, dirs,
-                                                   radius=0.5 * scale))
-            self.static_masks.append(np.ones((h, w, 1), np.float32))
+            image = _sphere_world_color(origins, dirs, radius=0.5 * scale)
+            static_mask = np.ones((h, w, 1), np.float32)
+            if self.DISTRACTORS and not held_out:
+                sz = max(3, h // 4)
+                y0 = rng.randint(0, h - sz)
+                x0 = rng.randint(0, w - sz)
+                image[y0:y0 + sz, x0:x0 + sz] = rng.rand(3)
+                static_mask[y0:y0 + sz, x0:x0 + sz] = 0.0
+            self.images.append(image)
+            self.static_masks.append(static_mask)
             self.nears.append(np.full((h, w, 1), self.near, np.float32))
             self.fars.append(np.full((h, w, 1), self.far, np.float32))
             c2ws.append(c2w)
@@ -74,3 +86,8 @@ class Synthetic(base.Dataset):
         self.pixtocams = np.stack(p2cs, axis=0)
         self.distortion_params = [None] * n
         self.camtypes = [camera_utils.ProjectionType.PERSPECTIVE] * n
+
+
+class SyntheticDistractor(Synthetic):
+    """The synthetic scene with a transient square in every train image."""
+    DISTRACTORS = True

@@ -1,14 +1,15 @@
-"""Data, interlevel and distortion losses (the main-path part of the zoo).
+"""Data, HA-NeRF, interlevel and distortion losses.
 
-Twin of nerf_hugs_tpu/losses/zoo.py:44-81,231-247 (MipNeRF360/internal/
-train_utils.py:72-111,228-248). robustnerf, nerfw and hanerf wait
-(ROADMAP.md Queue 1 item 12).
+Twin of nerf_hugs_tpu/losses/zoo.py:44-81,200-247 (MipNeRF360/internal/
+train_utils.py:72-111,186-248). robustnerf and nerfw wait (ROADMAP.md
+Queue 1 item 12).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from nerf_hugs_torch.core import stepfun
@@ -58,6 +59,44 @@ def compute_data_loss(batch, rays, renderings: List[dict], config,
         data = data + config.data_coarse_loss_mult * sum(data_losses[:-1])
     losses: Dict[str, torch.Tensor] = {"data": data}
     return losses, {"mses": torch.stack(mses)}
+
+
+def hanerf_mask_size_mult(train_frac: float, config) -> float:
+    """The mask-size weight: max * exp(-k * step), floored at min, in
+    float32 like the jitted JAX arithmetic."""
+    f32 = np.float32
+    decay = np.exp(-f32(train_frac) * f32(config.max_steps)
+                   * f32(config.hanerf_mask_size_loss_mult_k))
+    return float(np.maximum(
+        f32(config.hanerf_mask_size_loss_mult_min),
+        f32(config.hanerf_mask_size_loss_mult_max) * decay))
+
+
+def compute_hanerf_loss(batch, renderings: List[dict], train_frac: float,
+                        config):
+    """HA-NeRF: the final level's data loss weighted by (1 - implicit
+    mask), plus the decayed mask-size penalty mean(mask^2); earlier levels
+    take the detached mask, so only the final level trains it."""
+    implicit_mask = renderings[-1]["implicit_mask"]
+    losses: Dict[str, torch.Tensor] = {}
+    data_losses, mses = [], []
+    for i, rendering in enumerate(renderings):
+        resid_sq = (rendering["rgb"] - target_rgb(batch, rendering)) ** 2
+        data_loss = _per_level_data_loss(resid_sq, config)
+        if i == len(renderings) - 1:
+            data_loss = (1.0 - implicit_mask) * data_loss
+            losses["mask_size"] = (hanerf_mask_size_mult(train_frac, config)
+                                   * (implicit_mask ** 2).mean())
+        else:
+            data_loss = (1.0 - implicit_mask.detach()) * data_loss
+        data_losses.append(data_loss.mean())
+        mses.append(resid_sq.mean())
+    data = config.data_loss_mult * data_losses[-1]
+    if len(data_losses) > 1:
+        data = data + config.data_coarse_loss_mult * sum(data_losses[:-1])
+    losses["data"] = data
+    return losses, {"mses": torch.stack(mses),
+                    "implicit_mask": implicit_mask.mean()}
 
 
 def interlevel_loss(ray_history: List[dict], config):

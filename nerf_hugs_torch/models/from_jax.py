@@ -13,7 +13,12 @@ NerfactoModel.state_dict() of this package:
   {..}/{mlp}/w_i [in, out]               -> {..}.{mlp}.w_i, as it is (the
                                             bias-free fused MLP keeps the
                                             flax layout)
-A module holds Dense_k layers or w_i weights, never both.
+  {appearance,transient}_embedding/embedding [num, dim]
+                                         -> {..}_embedding.weight, as it is
+  implicit_mask/{hashgrid,mlp}/...       -> implicit_mask.{hashgrid,mlp}...,
+                                            as the field's modules
+A module holds Dense_k layers or w_i weights, never both; any other leaf
+is refused.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 _TABLE_RE = re.compile(r"^table_(\d+)$")
 _DENSE_RE = re.compile(r"^Dense_(\d+)$")
 _FUSED_RE = re.compile(r"^w_(\d+)$")
+_EMBEDDINGS = ("appearance_embedding", "transient_embedding")
 
 
 def convert_nerfacto_params(flax_params: Dict[str, Any]
@@ -37,8 +43,21 @@ def convert_nerfacto_params(flax_params: Dict[str, Any]
     state: Dict[str, torch.Tensor] = {}
     as_tensor = lambda a: torch.from_numpy(np.array(a, np.float32))
     for top, modules in params.items():
+        if top in _EMBEDDINGS:
+            if set(modules) != {"embedding"}:
+                raise ValueError(f"unexpected flax leaves {top}/"
+                                 f"{sorted(modules)}")
+            state[f"{top}.weight"] = as_tensor(modules["embedding"])
+            continue
+        if not hasattr(modules, "items"):
+            raise ValueError(f"unexpected flax leaf {top}")
         for name, leaf in modules.items():
+            if not hasattr(leaf, "items"):
+                raise ValueError(f"unexpected flax leaf {top}/{name}")
             if name == "hashgrid":
+                if not all(_TABLE_RE.match(k) for k in leaf):
+                    raise ValueError(f"unexpected flax leaves {top}/hashgrid/"
+                                     f"{sorted(leaf)}")
                 levels = sorted((int(_TABLE_RE.match(k).group(1)), v)
                                 for k, v in leaf.items())
                 if [lvl for lvl, _ in levels] != list(range(len(levels))):
@@ -56,7 +75,8 @@ def convert_nerfacto_params(flax_params: Dict[str, Any]
                 continue
             for dense, p in leaf.items():
                 m = _DENSE_RE.match(dense)
-                if m is None or set(p) != {"kernel", "bias"}:
+                if m is None or not hasattr(p, "items") \
+                        or set(p) != {"kernel", "bias"}:
                     raise ValueError(f"unexpected flax module {top}/{name}/"
                                      f"{dense}")
                 prefix = f"{top}.{name}.layers.{int(m.group(1))}"

@@ -5,18 +5,22 @@ nerfacto.py without tiny-cuda-nn). Per level: sample intervals from the
 previous level's weights without gradient, warp s -> t, positions
 o + t*d, hash field, density -> weights, composite the final level.
 
-Contract: forward(rays, train_frac, compute_extras, rng) ->
-(renderings, ray_history), the JAX model's __call__ with rng=None as the
-deterministic path. renderings holds the final level only; ray_history
-every level's {sdist, weights, density} for the interlevel loss.
+Contract: forward(rays, train_frac, compute_extras, rng, zero_glo,
+zero_tra) -> (renderings, ray_history), the JAX model's __call__ with
+rng=None as the deterministic path. renderings holds the final level only
+(plus HA-NeRF's per-ray `implicit_mask`); ray_history every level's
+{sdist, weights, density} for the interlevel loss.
 
 Module and parameter names mirror the flax tree (field/hashgrid,
 field/mlp_base/Dense_k -> field.mlp_base.layers.k, field/mlp_base/w_i ->
-field.mlp_base.w_i, proposal_i/...), so models/from_jax.py maps one onto
-the other.
+field.mlp_base.w_i, proposal_i/..., appearance_embedding/embedding ->
+appearance_embedding.weight, implicit_mask/{hashgrid,mlp}), so
+models/from_jax.py maps one onto the other.
 
-Not ported yet (each raises NotImplementedError): appearance and transient
-embeddings, the NeRF-W transient head and HA-NeRF's implicit mask.
+Appearance and transient embeddings with their eval_embedding modes and
+HA-NeRF's implicit mask (a 2-D hash grid on the pixel coordinates) are
+ported. Not ported yet (raises NotImplementedError): the field's NeRF-W
+transient head, `transient_type: nerfw`.
 """
 
 from __future__ import annotations
@@ -142,17 +146,23 @@ class NerfactoField(nn.Module):
         self.mlp_base = _ReluMLP(spec.output_dim, nc.hidden_dim, 2,
                                  1 + nc.geo_feat_dim, compute_dtype,
                                  generator, fused=fused_ok)
-        self.mlp_head = _ReluMLP(16 + nc.geo_feat_dim, nc.hidden_dim_color, 3,
-                                 3, compute_dtype, generator, fused=fused_ok)
+        appearance_dim = (nc.appearance_embedding_dim
+                          if nc.use_appearance_embedding else 0)
+        self.mlp_head = _ReluMLP(16 + nc.geo_feat_dim + appearance_dim,
+                                 nc.hidden_dim_color, 3, 3, compute_dtype,
+                                 generator, fused=fused_ok)
 
-    def forward(self, positions, viewdirs):
+    def forward(self, positions, viewdirs, embedded_appearance=None):
         grid_pos, selector = _normalize_positions(positions, self.bound,
                                                   self.contraction)
         h = self.mlp_base(self.hashgrid(grid_pos))
         raw_density, geo_feat = h[..., :1].float(), h[..., 1:]
         density = trunc_exp(raw_density) * selector[..., None]
-        d_enc = sh_encode(viewdirs, degree=4).to(self.compute_dtype)
-        raw_rgb = self.mlp_head(torch.cat([d_enc, geo_feat], dim=-1))
+        color_in = [sh_encode(viewdirs, degree=4).to(self.compute_dtype),
+                    geo_feat]
+        if embedded_appearance is not None:
+            color_in.append(embedded_appearance.to(self.compute_dtype))
+        raw_rgb = self.mlp_head(torch.cat(color_in, dim=-1))
         return {"density": density[..., 0],
                 "rgb": torch.sigmoid(raw_rgb.float())}
 
@@ -178,13 +188,36 @@ class HashMLPDensityField(nn.Module):
         return density[..., 0]
 
 
-def _unsupported(config) -> Optional[str]:
-    nc = config.nerfacto
-    if nc.use_appearance_embedding or nc.use_transient_embedding:
-        return "appearance/transient embeddings"
-    if config.transient_type in ("nerfw", "hanerf"):
-        return f"the {config.transient_type} heads"
-    return None
+# HashImplicitMask's grid (JAX nerfacto.py:211-213): 16 levels of 2^19
+# rows over the pixel coordinates, resolution 16 to 2048.
+MASK_GRID = HashGridSpec(num_levels=16, features_per_level=2,
+                         log2_hashmap_size=19, base_res=16, max_res=2048,
+                         num_dims=2)
+
+
+class HashImplicitMask(nn.Module):
+    """HA-NeRF's implicit mask: the 2-D hash grid on the pixel coordinates
+    and the transient embedding through a Dense ReLU MLP (-> 64 -> 64 -> 1)
+    in the compute dtype, then a sigmoid in fp32 (JAX nerfacto.py:204-219)."""
+
+    def __init__(self, transient_embedding_dim: int,
+                 compute_dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.hashgrid = HashGridEncoding(MASK_GRID, generator)
+        self.mlp = _ReluMLP(MASK_GRID.output_dim + transient_embedding_dim,
+                            64, 3, 1, compute_dtype, generator)
+
+    def forward(self, coords, embedded_transient):
+        x = torch.cat([self.hashgrid(coords), embedded_transient], -1)
+        return torch.sigmoid(self.mlp(x).float())
+
+
+def _embedding(num: int, dim: int, generator: torch.Generator) -> nn.Embedding:
+    """flax nn.Embed's default init: normal with variance 1 / dim."""
+    embed = nn.Embedding(num, dim)
+    with torch.no_grad():
+        embed.weight.normal_(0.0, 1.0 / math.sqrt(dim), generator=generator)
+    return embed
 
 
 class NerfactoModel(nn.Module):
@@ -195,11 +228,16 @@ class NerfactoModel(nn.Module):
 
     def __init__(self, config, device, generator: torch.Generator):
         super().__init__()
-        missing = _unsupported(config)
-        if missing is not None:
+        if config.transient_type == "nerfw":
             raise NotImplementedError(
-                f"{missing} are not ported yet (ROADMAP.md Queue 1 item 12)")
+                "the NeRF-W transient head (transient_type 'nerfw') is not "
+                "ported yet (ROADMAP.md Queue 1 item 12)")
         nc = config.nerfacto
+        if config.transient_type == "hanerf" \
+                and not nc.use_transient_embedding:
+            raise ValueError("transient_type 'hanerf' needs "
+                             "use_transient_embedding: its mask reads the "
+                             "transient embedding")
         self.config = config
         contraction = config.enable_scene_contraction
         bound = float(config.bound)
@@ -227,6 +265,18 @@ class NerfactoModel(nn.Module):
                                           generator)
                 self.add_module(f"proposal_{i}", net)
                 self.prop_nets.append(net)
+        # Each table exists whenever its switch is on, whatever the eval
+        # mode (the flax init-touch of JAX nerfacto.py:229-235).
+        num = config.model.num_embeddings
+        self.appearance_embedding = (
+            _embedding(num, nc.appearance_embedding_dim, generator)
+            if nc.use_appearance_embedding else None)
+        self.transient_embedding = (
+            _embedding(num, nc.transient_embedding_dim, generator)
+            if nc.use_transient_embedding else None)
+        self.implicit_mask = (
+            HashImplicitMask(nc.transient_embedding_dim, cdt, generator)
+            if config.transient_type == "hanerf" else None)
         sampler = nc.proposal_initial_sampler
         warps = {"piecewise": "piecewise", "uniform": None,
                  "reciprocal": torch.reciprocal}
@@ -253,10 +303,29 @@ class NerfactoModel(nn.Module):
         update_prop = bool((np.round(curr_step) % interval) < 0.5)
         return float(anneal), update_prop
 
+    def _get_embedding(self, embed: nn.Embedding, embed_idx: torch.Tensor,
+                       deterministic: bool, zero: bool) -> torch.Tensor:
+        """[..., dim] rows of `embed` at `embed_idx`, under the
+        eval_embedding modes (JAX nerfacto.py:226-243): zeros when `zero`,
+        and on the deterministic path zeros ('zero') or the table's mean
+        ('average'); else the rows ('original')."""
+        mode = self.config.nerfacto.eval_embedding
+        shape = embed_idx.shape + (embed.embedding_dim,)
+        if zero or (deterministic and mode == "zero"):
+            return torch.zeros(shape, device=embed.weight.device)
+        if deterministic and mode == "average":
+            return embed.weight.mean(dim=0).expand(shape)
+        return embed(embed_idx)
+
     def forward(self, rays: structs.Rays, train_frac: float,
                 compute_extras: bool,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                zero_glo: bool = True, zero_tra: bool = True):
+        """zero_glo / zero_tra zero the appearance / transient embeddings:
+        training passes False for both, rendering the config's
+        enable_render_zero_glo / enable_render_zero_tra."""
         nc = self.config.nerfacto
+        deterministic = rng is None
         _, s_to_t = coord.construct_ray_warps(self._warp_fn, rays.near,
                                               rays.far)
         anneal, update_prop = self.proposal_schedule(train_frac)
@@ -296,8 +365,15 @@ class NerfactoModel(nn.Module):
                     density = self.prop_nets[i_level](positions)
                 field_outputs = {"density": density}
             else:
+                emb_a = None
+                if self.appearance_embedding is not None:
+                    # One row per ray, the same for each of its samples.
+                    emb_a = self._get_embedding(
+                        self.appearance_embedding, rays.embed_idx,
+                        deterministic, zero_glo).expand(
+                            positions.shape[:-1] + (-1,))
                 vd = rays.viewdirs[..., None, :].expand(positions.shape)
-                field_outputs = self.field(positions, vd)
+                field_outputs = self.field(positions, vd, emb_a)
 
             weights = render.compute_alpha_weights(
                 field_outputs["density"], tdist, rays.directions,
@@ -316,6 +392,12 @@ class NerfactoModel(nn.Module):
                 if rng is not None:
                     rendering["bg_rgb"] = bg_rgbs
                 renderings.append(rendering)
+        if self.implicit_mask is not None:
+            emb_t = self._get_embedding(self.transient_embedding,
+                                        rays.embed_idx[..., 0], deterministic,
+                                        zero_tra)
+            renderings[-1]["implicit_mask"] = self.implicit_mask(
+                rays.pix_coords, emb_t)
         return renderings, ray_history
 
     def _background(self, rng: Optional[torch.Generator], shape, device):

@@ -17,8 +17,11 @@ and per-level row offsets. Features come out level-major, feature-minor:
 On CUDA tensors the encode runs the hand-written kernels of
 csrc/hashgrid.cu (forward here, table gradient in ops/hashgrid_bwd.py)
 joined by one autograd.Function; on CPU tensors the same Function runs
-their plain PyTorch versions. Positions get no gradient, as in the JAX
-custom VJP: every caller feeds sample positions drawn without gradient.
+their plain PyTorch versions. The kernels take d = 3 (the nerfacto fields)
+and d = 2 (the HA-NeRF implicit mask); each wrapper counts the launches of
+its two instantiations apart, `launches` for d = 3 and `launches_2d` for
+d = 2. Positions get no gradient, as in the JAX custom VJP: every caller
+feeds positions drawn without gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from torch import nn
 from nerf_hugs_torch.ops import kernels
 
 _PRIMES = (1, 2654435761, 805459861)
+# The dims csrc/hashgrid.cu is instantiated for.
+KERNEL_DIMS = (2, 3)
 
 
 def level_scales(num_levels: int, base_res: int, max_res: int) -> np.ndarray:
@@ -129,8 +134,8 @@ class HashGridSpec:
 def level_table(spec: HashGridSpec) -> np.ndarray:
     """[L, 8] int32 per-level constants for the kernels (csrc LevelRow):
     scale bits, three multipliers, rows, row offset, dense flag, pad."""
-    if spec.num_dims > 3:
-        raise ValueError("the kernels take at most 3 dims")
+    if spec.num_dims not in KERNEL_DIMS:
+        raise ValueError("the kernels take 2 or 3 dims")
     tab = np.zeros((spec.num_levels, 8), np.uint32)
     tab[:, 0] = spec.scales.astype(np.float32).view(np.uint32)
     tab[:, 1:1 + spec.num_dims] = spec.level_multipliers() % (1 << 32)
@@ -232,9 +237,9 @@ def check_kernel_args(spec: HashGridSpec, aligned: Tuple[str, ...] = (),
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if spec.features_per_level != 2:
         raise ValueError("the kernels take features_per_level == 2")
-    if spec.num_dims != 3:
-        raise ValueError("the kernels take 3 dims (the 2-D grids of the "
-                         "HA-NeRF mask are not ported)")
+    if spec.num_dims not in KERNEL_DIMS:
+        raise ValueError(f"the kernels take 2 or 3 dims, got "
+                         f"{spec.num_dims}")
     if spec.num_rows >= 1 << 31:
         raise ValueError("table rows must fit int32")
 
@@ -272,11 +277,20 @@ def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
                       dtype=torch.float32, device=table.device)
     launch_encode(kernels.load(), table, positions, out, spec)
     if out.numel():
-        hashgrid_fwd.launches += 1
+        count_launch(hashgrid_fwd, spec)
     return out
 
 
-hashgrid_fwd.launches = 0
+def count_launch(wrapper, spec: HashGridSpec) -> None:
+    """One launch of the wrapper's d = 3 or d = 2 kernel."""
+    if spec.num_dims == 2:
+        wrapper.launches_2d += 1
+    else:
+        wrapper.launches += 1
+
+
+hashgrid_fwd.launches = 0      # d = 3
+hashgrid_fwd.launches_2d = 0   # d = 2
 
 
 class _HashGridEncode(torch.autograd.Function):

@@ -19,7 +19,7 @@ import torch
 
 from nerf_hugs_torch.ops import kernels
 from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_devices,
-                                          check_kernel_args,
+                                          check_kernel_args, count_launch,
                                           corner_rows_level,
                                           device_level_table)
 
@@ -74,8 +74,9 @@ def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
                              dtype=torch.float32, device=positions.device)
     launch_table_grad(kernels.load(), positions, grad_out, grad_table, spec)
     if n:
-        hashgrid_table_grad.launches += 1
+        count_launch(hashgrid_table_grad, spec)
     return grad_table
 
 
-hashgrid_table_grad.launches = 0
+hashgrid_table_grad.launches = 0      # d = 3
+hashgrid_table_grad.launches_2d = 0   # d = 2

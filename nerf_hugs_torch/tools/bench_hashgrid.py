@@ -1,11 +1,11 @@
 """Times the hash-grid kernels of csrc/hashgrid.cu against an earlier
 hashgrid.cu with the same C interface, in one process on one card, and the
-Dense kubric_nerfacto_base train step of several checkouts.
+train step of several checkouts.
 
     python -m nerf_hugs_torch.tools.bench_hashgrid kernels \\
         [--baseline OLD_HASHGRID_CU] [--captured] [--out JSON]
     python -m nerf_hugs_torch.tools.bench_hashgrid train ROOT [ROOT ...] \\
-        [--steps 48] [--profile] [--out JSON]
+        [--steps 48] [--runs RUN [RUN ...]] [--profile] [--out JSON]
 
 `kernels` loads the package's kernels (ops/kernels.py) and, with
 --baseline, builds the given hashgrid.cu with the same nvcc flags into a
@@ -23,12 +23,15 @@ CUDA-event runs; the builds are timed in turns, A B B A three times, six
 readings each.
 
 `train` runs `python -m nerf_hugs_torch.train` from each checkout ROOT in
-the order given (e.g. parent, change, change, parent) on the procedural
-scene of hashgrid_inputs.base_yaml, Dense MLPs, and reports the steps/s
-over steps 9 to the last from the driver's print lines; with --profile it
-then runs, per distinct ROOT, 8 warm-up and 5 profiled train steps under
-torch.profiler and reports device ms per step of the hash-grid kernels and
-of all kernels.
+the order given (e.g. parent, change, change, parent), once per RUN in the
+order given, and reports the steps/s over steps 9 to the last from the
+driver's print lines. A RUN is `base-synthetic` (the default: Dense
+kubric_nerfacto_base on the procedural scene of hashgrid_inputs.base_yaml),
+`base-kubric` (the same on the scene of hashgrid_inputs.write_kubric_scene,
+through the kubric loader) or `hanerf-kubric` (hashgrid_inputs.hanerf_yaml
+on that scene). With --profile it then runs, per distinct ROOT and RUN, 8
+warm-up and 5 profiled train steps under torch.profiler and reports device
+ms per step of the hash-grid kernels and of all kernels.
 
 Needs a card; the builds need nvcc.
 """
@@ -170,12 +173,13 @@ def kernels_main(args) -> dict:
     return report
 
 
-def train_rate(root: str, cfg: str, tmp: str, run: int, first: int) -> float:
+def train_rate(root: str, cfg: str, data_dir: str, tmp: str, run: int,
+               first: int) -> float:
     """Steps/s over steps `first`..last of one driver run from `root`."""
     save_dir = os.path.join(tmp, "exp", f"run{run}")
     env = dict(os.environ, PYTHONPATH=root)
     subprocess.run([sys.executable, "-m", "nerf_hugs_torch.train",
-                    "--config", cfg, "--data_dir", tmp, "--save_dir",
+                    "--config", cfg, "--data_dir", data_dir, "--save_dir",
                     save_dir, "--device", "cuda"], cwd=root, env=env,
                    check=True, stdout=subprocess.DEVNULL)
     with open(os.path.join(save_dir, "run_log.log")) as f:
@@ -192,13 +196,13 @@ from torch.profiler import ProfilerActivity, profile
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.models.nerfacto import NerfactoModel
 from nerf_hugs_torch.train import driver, step as step_lib
-cfg, tmp = sys.argv[1], sys.argv[2]
+cfg, data_dir = sys.argv[1], sys.argv[2]
 warm, active = int(sys.argv[3]), int(sys.argv[4])
-config = driver.load_config(cfg, tmp, tmp + "/profile_ckpt")
+config = driver.load_config(cfg, data_dir, data_dir + "/profile_ckpt")
 model = NerfactoModel(config, "cuda",
                       torch.Generator().manual_seed(config.seed))
 optimizer, scheduler = step_lib.create_optimizer(config, model)
-dataset = load_dataset("train", tmp, config, is_training=True)
+dataset = load_dataset("train", data_dir, config, is_training=True)
 rng = torch.Generator(device="cuda").manual_seed(config.seed + 1)
 def run(step):
     frac = (step - 1) / max(config.max_steps - 1, 1)
@@ -222,12 +226,12 @@ print("PROFILE " + json.dumps(ms))
 """
 
 
-def profile_steps(root: str, cfg: str, tmp: str, warm: int = 8,
+def profile_steps(root: str, cfg: str, data_dir: str, warm: int = 8,
                   active: int = 5) -> dict:
     """Device ms and launches per train step, by kernel name, of `active`
     profiled steps after `warm` steps, in a process importing `root`."""
     env = dict(os.environ, PYTHONPATH=root)
-    out = subprocess.run([sys.executable, "-c", PROFILE_WORKER, cfg, tmp,
+    out = subprocess.run([sys.executable, "-c", PROFILE_WORKER, cfg, data_dir,
                           str(warm), str(active)], cwd=root, env=env,
                          check=True, capture_output=True, text=True).stdout
     ms = json.loads(out.split("PROFILE ", 1)[1])
@@ -239,24 +243,47 @@ def profile_steps(root: str, cfg: str, tmp: str, warm: int = 8,
                                  if "hashgrid" in k}}
 
 
+RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-kubric")
+
+
+def run_inputs(run: str, tmp: str, steps: int):
+    """(config path, data dir) of one RUN."""
+    scene = os.path.join(tmp, "kubric")
+    if run.endswith("kubric") and not os.path.isdir(scene):
+        hashgrid_inputs.write_kubric_scene(scene)
+    if run == "hanerf-kubric":
+        return hashgrid_inputs.hanerf_yaml(tmp, steps=steps), scene
+    scene_name = run.split("-")[1]
+    cfg = hashgrid_inputs.base_yaml(tmp, fused=False, steps=steps,
+                                    scene=scene_name)
+    return cfg, (scene if scene_name == "kubric" else tmp)
+
+
 def train_main(args) -> dict:
     report = {"rates": [], "profiles": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = hashgrid_inputs.base_yaml(tmp, fused=False, steps=args.steps)
-        for i, root in enumerate(args.roots):
-            rate = train_rate(os.path.abspath(root), cfg, tmp, i, 9)
-            report["rates"].append({"root": root, "steps_per_s": rate})
-            print(f"train {root}: {rate:.3f} steps/s over steps 9-"
-                  f"{args.steps} (Dense kubric_nerfacto_base)", flush=True)
+        inputs = {run: run_inputs(run, tmp, args.steps)
+                  for run in dict.fromkeys(args.runs)}
+        i = 0
+        for root in args.roots:
+            for run in args.runs:
+                rate = train_rate(os.path.abspath(root), *inputs[run], tmp, i,
+                                  9)
+                i += 1
+                report["rates"].append({"root": root, "run": run,
+                                        "steps_per_s": rate})
+                print(f"train {root} {run}: {rate:.3f} steps/s over steps "
+                      f"9-{args.steps}", flush=True)
         if args.profile:
             for root in dict.fromkeys(args.roots):
-                prof = profile_steps(os.path.abspath(root), cfg, tmp)
-                report["profiles"][root] = prof
-                print(f"profile {root}: per step hashgrid_fwd "
-                      f"{prof['hashgrid_fwd_ms']:.3f} ms, hashgrid_bwd "
-                      f"{prof['hashgrid_bwd_ms']:.3f} ms, all kernels "
-                      f"{prof['device_ms']:.3f} ms; "
-                      f"{prof['hashgrid_kernels']}", flush=True)
+                for run in dict.fromkeys(args.runs):
+                    prof = profile_steps(os.path.abspath(root), *inputs[run])
+                    report["profiles"][f"{root} {run}"] = prof
+                    print(f"profile {root} {run}: per step hashgrid_fwd "
+                          f"{prof['hashgrid_fwd_ms']:.3f} ms, hashgrid_bwd "
+                          f"{prof['hashgrid_bwd_ms']:.3f} ms, all kernels "
+                          f"{prof['device_ms']:.3f} ms; "
+                          f"{prof['hashgrid_kernels']}", flush=True)
     return report
 
 
@@ -271,6 +298,9 @@ def main(argv=None) -> dict:
     t = sub.add_parser("train")
     t.add_argument("roots", nargs="+", help="checkouts to train from")
     t.add_argument("--steps", type=int, default=48)
+    t.add_argument("--runs", nargs="+", choices=RUNS_TRAIN,
+                   default=["base-synthetic"],
+                   help="configs and scenes to train, in this order")
     t.add_argument("--profile", action="store_true")
     for p in (k, t):
         p.add_argument("--out", help="write the report here as JSON")

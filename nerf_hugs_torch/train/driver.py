@@ -74,6 +74,21 @@ def _eval_metrics(model, test_dataset, window, train_frac, config, device,
             for k in per_image[0]}
 
 
+def check_num_embeddings(config, dataset) -> None:
+    """With appearance or transient embeddings, the table must cover the
+    split's largest embedding index (test splits offset theirs by the train
+    count), as train.py:160-180 checks."""
+    nc = config.nerfacto
+    if not (nc.use_appearance_embedding or nc.use_transient_embedding):
+        return
+    needed = (int(np.max(dataset.embed_idxs)) + 1 if len(dataset.embed_idxs)
+              else dataset.size)
+    if needed > config.model.num_embeddings:
+        raise ValueError(
+            f"Number of embeddings {config.model.num_embeddings} must cover "
+            f"the train split's max embedding index (needs {needed})")
+
+
 def load_config(path: str, data_dir: str, save_dir: str):
     """The yaml config as the unified Config, with the CLI's directories."""
     config = yaml_loader.load_yaml_config(path)
@@ -112,6 +127,7 @@ def main(argv=None):
     recorder.print(f"Number of parameters being optimized: {num_params}")
 
     dataset = load_dataset("train", config.data_dir, config, is_training=True)
+    check_num_embeddings(config, dataset)
     init_step = checkpoints.restore_checkpoint(config.checkpoint_dir, model,
                                                optimizer, scheduler) + 1
     num_steps = config.max_steps
@@ -134,11 +150,15 @@ def main(argv=None):
             psnr = float(torch.stack([s["psnr"] for s in stats_buffer]).mean())
             elapsed = time.time() - start
             steps_per_sec = len(stats_buffer) / max(elapsed, 1e-9)
+            # The last step's loss terms: the run log's stand-in for the
+            # train_losses/* summaries (ROADMAP.md Queue 1 item 10b).
+            terms = " ".join(f"{k}={float(v):.5f}" for k, v in
+                             stats_buffer[-1]["losses"].items())
             recorder.print(
                 f"[train] {step}/{num_steps}: loss={loss:.5f} "
                 f"psnr={psnr:.3f} lr={scheduler.get_last_lr()[0]:.2e} "
                 f"{steps_per_sec:.2f} steps/s "
-                f"{config.batch_size * steps_per_sec:.0f} rays/s")
+                f"{config.batch_size * steps_per_sec:.0f} rays/s {terms}")
             stats_buffer = []
             start = time.time()
 

@@ -1,7 +1,7 @@
 """Adam, gradient clipping and the train step.
 
 Twin of nerf_hugs_tpu/train/step.py:66-252 for one device: the loss
-composition of the JAX `loss_fn`, per-top-level-module clipping,
+composition of the JAX `loss_fn` (base, withmask and hanerf), per-top-level-module clipping,
 nan_to_num on the gradients and optax's Adam on the warmup-decay schedule.
 The finetune stage waits (ROADMAP.md Queue 1 item 8).
 """
@@ -87,13 +87,17 @@ def compute_loss(model, batch, train_frac: float, config,
     rays = batch.rays
     renderings, ray_history = model(
         rays, train_frac, compute_extras=False,
-        rng=rng if config.randomized else None)
+        rng=rng if config.randomized else None, zero_glo=False,
+        zero_tra=False)
     if config.transient_type is None:
         losses, stats = zoo.compute_data_loss(batch, rays, renderings,
                                               config, False)
     elif config.transient_type == "withmask":
         losses, stats = zoo.compute_data_loss(batch, rays, renderings,
                                               config, True)
+    elif config.transient_type == "hanerf":
+        losses, stats = zoo.compute_hanerf_loss(batch, renderings,
+                                                train_frac, config)
     else:
         raise NotImplementedError(
             f"transient_type {config.transient_type!r} is not ported yet "

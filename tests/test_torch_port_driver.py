@@ -113,9 +113,10 @@ def test_synthetic_data_matches_jax():
 
 
 def test_unported_loaders_and_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset("train", "", tu.tiny_config(
-            base={"dataset_type": "kubric"}), is_training=True)
+    for loader in ("distractor", "llff", "phototourism", "blender"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            load_dataset("train", "", tu.tiny_config(
+                base={"dataset_type": loader}), is_training=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_dataset("train", "", tu.tiny_config(
             base={"enable_clip_near_far": True}), is_training=True)

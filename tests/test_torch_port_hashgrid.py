@@ -76,7 +76,9 @@ def _odd_row_view(spec):
     ("table from an odd row", "16-byte"),
     ("grad_table from an odd row", "16-byte"),
     ("4 features per level", "features_per_level"),
-    ("2 dims", "3 dims"),
+    ("2 dims", None),
+    ("1 dim", "2 or 3 dims"),
+    ("4 dims", "2 or 3 dims"),
 ])
 def test_kernel_argument_checks(case, match):
     spec = thg.HashGridSpec(num_levels=2, log2_hashmap_size=10)
@@ -96,9 +98,12 @@ def test_kernel_argument_checks(case, match):
     elif case == "4 features per level":
         spec = thg.HashGridSpec(num_levels=2, features_per_level=4,
                                 log2_hashmap_size=10)
-    elif case == "2 dims":
+    elif case.endswith(("dim", "dims")):
+        # The kernels are instantiated for d = 2 (the HA-NeRF mask) and 3.
+        d = int(case.split()[0])
         spec = thg.HashGridSpec(num_levels=2, log2_hashmap_size=10,
-                                num_dims=2)
+                                num_dims=d)
+        args["positions"] = torch.zeros(n, d)
     # The wrappers name the table and the table gradient as aligned.
     check = lambda: thg.check_kernel_args(
         spec, aligned=("table", "grad_table"), **args)

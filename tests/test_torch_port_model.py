@@ -229,9 +229,19 @@ def test_amp_forward_tracks_jax_bf16(jax_model):
 
 
 def test_unported_heads_raise():
+    # The NeRF-W transient head waits, with or without the embeddings it
+    # reads; the embeddings and HA-NeRF's mask are ported.
+    for model in ({"transient_type": "nerfw"},
+                  {"transient_type": "nerfw", "use_transient_embedding": True,
+                   "use_appearance_embedding": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            NerfactoModel(tu.tiny_config(model=model), "cpu",
+                          torch.Generator())
+    NerfactoModel(tu.tiny_config(model={"use_appearance_embedding": True}),
+                  "cpu", torch.Generator())
+    config = tu.tiny_config(model={"transient_type": "robustnerf"})
+    model = NerfactoModel(config, "cpu", torch.Generator())
+    batch = tstructs.Batch(rays=tstructs.Rays(**tu.ray_arrays(16, 0)),
+                           rgb=np.zeros((16, 3), np.float32)).to("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NerfactoModel(tu.tiny_config(model={"use_appearance_embedding": True}),
-                      "cpu", torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NerfactoModel(tu.tiny_config(model={"transient_type": "nerfw"}),
-                      "cpu", torch.Generator())
+        tstep.compute_loss(model, batch, 0.5, config, None)
