@@ -20,13 +20,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      absolute, table gradient within 1e-5 of its largest entry; the atomics
      sum in a varying order), then the median of 10 timed runs of each at
      the main path's shapes;
-  4. the fused-MLP kernel against its plain version at the three shapes of
-     kubric_nerfacto_base with enable_tcnn_mlp (proposal mlp_base
+  4. the fused-MLP kernels against their plain version at the three shapes
+     of kubric_nerfacto_base with enable_tcnn_mlp (proposal mlp_base
      [4194304, 14] -> 64 -> 1, field mlp_base [2097152, 32] -> 256 -> 65,
      field mlp_head [2097152, 80] -> 256 -> 256 -> 3), in bf16 within 2 bf16
      ulps (2^-7) of the output's largest entry and in fp32 within 1e-5 of
      it, also on a ragged, unaligned span of 4097 rows, then the median of
-     10 timed runs of each;
+     10 timed runs of each beside the kernel alone from a profiler trace
+     and, in bf16, the cuBLAS bf16 chain (torch.matmul + relu per layer);
+     then bf16 at every width of configs/nerfacto/*nerfacto*.yml and at
+     edge widths (1, 256, odd, 8 layers) at small n, below one tile and
+     ragged from row 1, each call checked to take the kernel its widths
+     route to (8 layers of 256: the streamed kernel, the rest resident);
   5. a small model on the card (kernels) against the same weights on the
      CPU (plain versions), loss and every parameter gradient, with the
      Dense MLPs and with enable_tcnn_mlp on for the field and the proposal;
@@ -56,8 +61,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      proposal on the procedural `synthetic` scene, then
      `nerf_hugs_torch.eval.main` on its checkpoint (2 test images of
      256x256, 4 render chunks each) with the fused-MLP and hash-grid launch
-     counters read around the eval, then the scoring CLI over the
-     test_preds/ PNGs the eval wrote;
+     counters read around the eval (the resident bf16 kernel must launch,
+     the streamed one never), then the scoring CLI over the test_preds/
+     PNGs the eval wrote;
   9. the planar-accumulate kernel against its plain version on the gathers
      of n = 2^21 samples from dense levels of 81^3 and 127^3 rows, and on a
      ragged span of them (within 1e-5 absolute), with timings, then the
@@ -96,14 +102,14 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# The fused-MLP shapes of kubric_nerfacto_base with enable_tcnn_mlp: (name,
-# samples per ray, layer widths); the rows are the batch's rays times the
-# samples per ray.
-FUSED_SHAPES = (("proposal mlp_base", 256, (14, 64, 1)),
-                ("field mlp_base", 128, (32, 256, 65)),
-                ("field mlp_head", 128, (80, 256, 256, 3)))
 # Relative to the output's largest entry (see phase 4 above).
 FUSED_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# Phase 4's small bf16 cases beyond the shipped widths: (widths, rows, rows
+# skipped at the start of x). Widths 1 and 256, odd widths, 8 layers, and
+# 8 layers of 256, whose weights no block can hold (the streamed kernel).
+FUSED_EDGES = (((1, 256), 129, 0), ((256, 1), 65, 1),
+               ((17, 48, 24, 5), 1000, 1), ((32,) * 9, 513, 0),
+               ((256,) * 9, 4097, 1))
 # Ragged: no multiple of a warp or a block. Each adversarial row gradient
 # sums up to n payloads, and the plain version's sequential atomics round
 # about sqrt(n) times; at 2^13 that stays a few 1e-6 of the largest entry.
@@ -419,55 +425,127 @@ def mask_kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
     return worst, timings
 
 
+def shipped_fused_widths() -> list:
+    """The bf16 fused-MLP widths of configs/nerfacto/*nerfacto*.yml with
+    enable_tcnn_mlp on, as the model builds them."""
+    import glob
+    from nerf_hugs_torch.configs import yaml_loader
+    from nerf_hugs_torch.models.nerfacto import fused_mlp_widths
+    widths = set()
+    for path in glob.glob(os.path.join(HERE, "configs", "nerfacto",
+                                       "*nerfacto*.yml")):
+        widths.update(fused_mlp_widths(
+            yaml_loader.load_yaml_config(path)).values())
+    return sorted(widths)
+
+
+def fused_inputs(torch, dims, n, dtype, gen, dev):
+    x = torch.randn((n, dims[0]), generator=gen, device=dev).to(dtype)
+    ws = [((torch.rand((a, b), generator=gen, device=dev) * 2 - 1)
+           * math.sqrt(6.0 / a)).to(dtype)
+          for a, b in zip(dims[:-1], dims[1:])]
+    return x, ws
+
+
+def fused_route_check(torch, fused_mlp, x, ws, label):
+    """One kernel call against the plain version; checks that the bf16
+    launch went to the kernel its widths route to; returns the relative
+    error (of the output's largest entry)."""
+    dims = [x.shape[1]] + [w.shape[1] for w in ws]
+    fwd = fused_mlp.fused_mlp_fwd
+    before = (fwd.launches_resident, fwd.launches_streamed)
+    out_k = fwd(x, ws)
+    out_p = fused_mlp.fused_mlp_plain(x, ws)
+    torch.cuda.synchronize()
+    check(out_k.shape == out_p.shape == (x.shape[0], dims[-1])
+          and out_k.dtype == x.dtype,
+          f"fused_mlp_fwd gave {tuple(out_k.shape)} {out_k.dtype} ({label})")
+    if x.dtype == torch.bfloat16:
+        resident = fused_mlp.is_resident(x.dtype, dims)
+        got = (fwd.launches_resident - before[0],
+               fwd.launches_streamed - before[1])
+        check(got == ((1, 0) if resident else (0, 1)),
+              f"the bf16 launch took the wrong kernel ({label}): {got}")
+    return float((out_k.float() - out_p.float()).abs().max()
+                 / out_p.float().abs().max())
+
+
 def fused_mlp_phase(torch, fused_mlp, dev):
-    """The fused-MLP kernel vs its plain version at the main path's shapes,
-    bf16 and fp32; returns the worst abs error and the timings."""
-    from nerf_hugs_torch.tools.hashgrid_inputs import BATCH
+    """The fused-MLP kernels vs their plain version at the main path's
+    shapes, bf16 and fp32, on the ragged unaligned span, and (bf16) at the
+    shipped widths and the edges at small n; returns the worst abs error
+    and the timings."""
+    from nerf_hugs_torch.tools.bench_fused_mlp import cublas_chain
+    from nerf_hugs_torch.tools.hashgrid_inputs import BATCH, FUSED_SHAPES
     gen = torch.Generator(device=dev).manual_seed(1)
     worst, timings = 0.0, {}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
+        tol = FUSED_TOL[dtype_name]
+        kernel = ("fused_mlp_resident_kernel" if dtype_name == "bfloat16"
+                  else "fused_mlp_f32_kernel")
         for name, per_ray, dims in FUSED_SHAPES:
             n = BATCH * per_ray
-            x = torch.randn((n, dims[0]), generator=gen, device=dev).to(dtype)
-            ws = [((torch.rand((a, b), generator=gen, device=dev) * 2 - 1)
-                   * math.sqrt(6.0 / a)).to(dtype)
-                  for a, b in zip(dims[:-1], dims[1:])]
-            out_k = fused_mlp.fused_mlp_fwd(x, ws)
-            out_p = fused_mlp.fused_mlp_plain(x, ws)
-            torch.cuda.synchronize()
+            x, ws = fused_inputs(torch, dims, n, dtype, gen, dev)
             label = f"{name} {dtype_name} [{n}, {dims[0]}] -> " + " -> ".join(
                 str(d) for d in dims[1:])
-            check(out_k.shape == out_p.shape == (n, dims[-1])
-                  and out_k.dtype == dtype, f"fused_mlp_fwd gave "
-                  f"{tuple(out_k.shape)} {out_k.dtype} ({label})")
-            err = float((out_k.float() - out_p.float()).abs().max())
-            rel = err / float(out_p.float().abs().max())
+            rel = fused_route_check(torch, fused_mlp, x, ws, label)
+            out_p = fused_mlp.fused_mlp_plain(x, ws)
+            scale = float(out_p.float().abs().max())
             # A ragged row count (64 * 64 + 1) starting one row in, so the
             # last tile is partial and, for d_in 14, x is not 16-byte
-            # aligned: the masked edges and the input's plain-load path.
+            # aligned: the masked edges and the input's unaligned span.
             sub = x[1:1 + 64 * 64 + 1]
             sub_err = float((fused_mlp.fused_mlp_fwd(sub, ws).float()
                              - out_p[1:1 + sub.shape[0]].float()).abs().max())
-            rel = max(rel, sub_err / float(out_p.float().abs().max()))
-            worst = max(worst, err, sub_err)
-            t = {"ms": median_ms(lambda: fused_mlp.fused_mlp_fwd(x, ws)),
+            rel = max(rel, sub_err / scale)
+            worst = max(worst, rel * scale)
+            call = lambda: fused_mlp.fused_mlp_fwd(x, ws)
+            t = {"ms": median_ms(call),
+                 "alone": device_ms(torch, call, kernel),
                  "plain_ms": median_ms(
-                     lambda: fused_mlp.fused_mlp_plain(x, ws))}
+                     lambda: fused_mlp.fused_mlp_plain(x, ws)),
+                 "library_ms": None}
             t["bound_ms"], t["bound_by"] = bound(
                 nbytes(x, out_p, *ws),
                 2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:])),
                 dtype_name)
+            library = ""
+            if dtype_name == "bfloat16":
+                # The cuBLAS bf16 chain: one torch.matmul (+ relu) per
+                # layer, a yardstick the port never calls.
+                chain_rel = float((cublas_chain(x, ws).float()
+                                   - out_p.float()).abs().max()) / scale
+                t["library_ms"] = median_ms(lambda: cublas_chain(x, ws))
+                library = (f", cuBLAS bf16 chain {t['library_ms']:.3f} ms "
+                           f"(max_rel {chain_rel:.3e})")
             timings[(name, dtype_name)] = t
-            print(f"check {label}: max_abs={err:.3e} (ragged span "
-                  f"{sub_err:.3e}) max_rel={rel:.3e} "
-                  f"(tol {FUSED_TOL[dtype_name]:.3e}); kernel "
-                  f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            alone = ("not measured" if t["alone"] is None
+                     else f"{t['alone']:.3f} ms")
+            print(f"check {label}: max_abs={rel * scale:.3e} max_rel="
+                  f"{rel:.3e} (ragged span {sub_err / scale:.3e}; tol "
+                  f"{tol:.3e}); kernel "
+                  f"{t['ms']:.3f} ms (alone on the device {alone}), plain "
+                  f"{t['plain_ms']:.3f} ms{library}, bound "
                   f"{t['bound_ms']:.3f} ms ({t['bound_by']})", flush=True)
-            check(math.isfinite(rel) and rel <= FUSED_TOL[dtype_name],
+            check(math.isfinite(rel) and rel <= tol,
                   f"fused_mlp_fwd disagrees with its plain version "
                   f"({label}): {rel}")
-            del x, ws, out_k, out_p, sub
+            del x, ws, out_p, sub
+    # bf16 at every shipped width and at the edges, small n: below one
+    # tile, and not a multiple of 64 with x starting one row in.
+    cases = [(dims, n, skip) for dims in shipped_fused_widths()
+             for n, skip in ((37, 0), (4097, 1))] + list(FUSED_EDGES)
+    for dims, n, skip in cases:
+        x, ws = fused_inputs(torch, dims, n + skip, torch.bfloat16, gen, dev)
+        label = (f"bf16 {dims} n={n}{' from row 1' if skip else ''} "
+                 + ("resident" if fused_mlp.is_resident(torch.bfloat16, dims)
+                    else "streamed"))
+        rel = fused_route_check(torch, fused_mlp, x[skip:], ws, label)
+        print(f"check {label}: max_rel={rel:.3e}", flush=True)
+        check(math.isfinite(rel) and rel <= FUSED_TOL["bfloat16"],
+              f"fused_mlp_fwd disagrees with its plain version ({label}): "
+              f"{rel}")
     return worst, timings
 
 
@@ -557,6 +635,10 @@ def launch_counters():
     return {"hashgrid_fwd": (hashgrid.hashgrid_fwd, "launches"),
             "hashgrid_bwd": (hashgrid_bwd.hashgrid_table_grad, "launches"),
             "fused_mlp_fwd": (fused_mlp.fused_mlp_fwd, "launches"),
+            "fused_mlp_fwd_resident": (fused_mlp.fused_mlp_fwd,
+                                       "launches_resident"),
+            "fused_mlp_fwd_streamed": (fused_mlp.fused_mlp_fwd,
+                                       "launches_streamed"),
             "planar_accum": (accum.planar_accum, "launches"),
             "hashgrid_fwd_2d": (hashgrid.hashgrid_fwd, "launches_2d"),
             "hashgrid_bwd_2d": (hashgrid_bwd.hashgrid_table_grad,
@@ -600,7 +682,9 @@ def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, data_dir, dev,
 
 # The kernels each run must launch, and those it must not.
 DENSE = ("hashgrid_fwd", "hashgrid_bwd")
-FUSED = DENSE + ("fused_mlp_fwd",)
+FUSED = DENSE + ("fused_mlp_fwd", "fused_mlp_fwd_resident")
+# No main path's MLP routes to the streamed bf16 kernel.
+NEVER = ("fused_mlp_fwd_streamed",)
 HANERF = DENSE + ("hashgrid_fwd_2d", "hashgrid_bwd_2d")
 
 
@@ -637,7 +721,8 @@ def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
           f"non-finite loss terms: {terms}")
     check(all(launches[k] > 0 for k in expected),
           f"a kernel was not launched during training: {launches}")
-    check(all(launches[k] == 0 for k in FUSED + HANERF if k not in expected),
+    check(all(launches[k] == 0 for k in FUSED + HANERF + NEVER
+              if k not in expected),
           f"the {tag} run launched a kernel off its path: {launches}")
     check(os.path.exists(os.path.join(save_dir, "checkpoint_8.pt")),
           "no step-8 checkpoint")
@@ -679,6 +764,8 @@ def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     launches = read_launches()
     check(all(launches[k] > 0 for k in expected if "bwd" not in k),
           f"eval did not run through the kernels: {launches}")
+    check(all(launches[k] == 0 for k in NEVER),
+          f"eval launched a kernel off its path: {launches}")
 
     preds = os.path.join(save_dir, "test_preds")
     colors = sorted(f for f in os.listdir(preds) if f.endswith("_color.png"))
@@ -879,10 +966,10 @@ def main() -> None:
         {"name": "fused_mlp_fwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/fused_mlp.cu",
          "replaces": "nerf_hugs_tpu/ops/fused_mlp.py:39",
-         "launches": eval_launches["fused_mlp_fwd"],
+         "launches": eval_launches["fused_mlp_fwd_resident"],
          "max_abs_err": fused_worst, "ms": head["ms"],
          "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-         "bound_by": head["bound_by"], "library_ms": None},
+         "bound_by": head["bound_by"], "library_ms": head["library_ms"]},
         {"name": "planar_accum", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/accum.cu",
          "replaces": "tools/bench_fwd_copies.py:94",

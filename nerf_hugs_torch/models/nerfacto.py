@@ -129,6 +129,27 @@ def _grid_spec(args: Dict[str, Any]) -> HashGridSpec:
         hash_impl=args.get("hash_impl", "xor"))
 
 
+def fused_mlp_widths(config) -> Dict[str, tuple]:
+    """{module name: layer widths} of the MLPs NerfactoModel builds for
+    `config` with enable_tcnn_mlp on for the field and every proposal net:
+    the shapes its fused MLP kernel takes."""
+    nc = config.nerfacto
+    appearance = (nc.appearance_embedding_dim
+                  if nc.use_appearance_embedding else 0)
+    widths = {
+        "field.mlp_base": (nc.num_levels * nc.features_per_level,
+                           nc.hidden_dim, 1 + nc.geo_feat_dim),
+        "field.mlp_head": (16 + nc.geo_feat_dim + appearance,
+                           nc.hidden_dim_color, nc.hidden_dim_color, 3)}
+    nets = 1 if nc.use_same_proposal_network else nc.num_proposal_iterations
+    for i in range(nets):
+        args = nc.proposal_net_args_list[
+            min(i, len(nc.proposal_net_args_list) - 1)]
+        widths[f"proposal_{i}.mlp_base"] = (_grid_spec(args).output_dim,
+                                            args.get("hidden_dim", 64), 1)
+    return widths
+
+
 class NerfactoField(nn.Module):
     """Hash grid -> density + geo_feat; SH(dir) + geo_feat -> rgb."""
 

@@ -5,18 +5,26 @@ the last layer linear and no layer with a bias, accumulated in fp32 and
 rounded to x's dtype after every layer; that per-layer rounding is part of
 the semantics.
 
-On CUDA tensors the forward is the hand-written kernel of
-csrc/fused_mlp.cu, which keeps the hidden activations on chip; on CPU
-tensors it is the plain version below. The backward recomputes the
-activations and runs plain matmuls, line for line the JAX custom VJP
-(`_fused_mlp_bwd`), which computes it with XLA outside any Pallas kernel.
+On CUDA tensors the forward is a hand-written kernel of csrc/fused_mlp.cu,
+which keeps the hidden activations on chip; on CPU tensors it is the plain
+version below. In bf16 the C entry point routes by widths alone: where
+`resident_plan` fits (every MLP of the shipped configs) the resident
+kernel (weights held in shared memory for the whole launch, wgmma,
+activations in registers) reads the weights as they are; elsewhere, and in
+fp32, the streamed kernel reads the zero-padded copies of
+`kernel_weights`. The wrapper counts every launch (`launches`) and the
+bf16 ones by design (`launches_resident`, `launches_streamed`). The
+backward recomputes the activations and runs plain matmuls, line for line
+the JAX custom VJP (`_fused_mlp_bwd`), which computes it with XLA outside
+any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +33,9 @@ from nerf_hugs_torch.ops import kernels
 MAX_WIDTH = 256   # csrc/fused_mlp.cu kMaxWidth
 MAX_LAYERS = 8    # csrc/fused_mlp.cu kMaxLayers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The resident kernel's plan (csrc/fused_mlp.cu make_resident_plan).
+SMEM_BUDGET = 232448   # kSmemBudget: the shared memory a block may have
+MAX_STAGES = 8         # kMaxStages: input tiles in flight per warpgroup
 
 
 def fused_mlp_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]
@@ -67,11 +78,62 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def kernel_weights(weights: Sequence[torch.Tensor]) -> list:
-    """Zero-padded copies of the weights in the kernel's slice layout
-    (csrc/fused_mlp.cu Mlp::w): bf16 W^T as [round_up(d_out, 64),
+def _cover_width(d: int, last: bool) -> int:
+    """Columns a layer's products cover (csrc/fused_mlp.cu cover_width):
+    64-column chunks, the last 8, 16, 32 or 64 wide."""
+    n_pad = _round_up(d, 8 if last else 16)
+    full = n_pad // 64 * 64
+    r = n_pad - full
+    return full + next((c for c in (0, 8, 16, 32, 64) if r <= c))
+
+
+def resident_plan(dims: Sequence[int]) -> Optional[dict]:
+    """The resident bf16 kernel's shared-memory plan for layer widths
+    `dims`, or None where the padded weights, each warpgroup's output tile
+    and one input slot do not fit SMEM_BUDGET: those widths take the
+    streamed kernel. The rule of csrc/fused_mlp.cu make_resident_plan.
+    Cached per widths (every forward asks); do not modify the result."""
+    return _resident_plan(tuple(dims))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_plan(dims: Tuple[int, ...]) -> Optional[dict]:
+    layers = len(dims) - 1
+    k_pad = [_round_up(d, 16) for d in dims[:-1]]
+    n_cov = [_cover_width(d, i == layers - 1) for i, d in enumerate(dims[1:])]
+    weight_bytes = sum(2 * k * c for k, c in zip(k_pad, n_cov))
+    # The last hidden layer feeds the output layer chunk by chunk where the
+    # output's sums fit a thread (72 columns) and every other layer's input
+    # fits 64-wide fragment arrays.
+    fused = layers >= 2 and n_cov[-1] <= 72 and max(k_pad[:-1]) <= 64
+    max_k = 64 if max(k_pad[:layers - fused]) <= 64 else 256
+    out_regs = 0 if not fused else 36 if n_cov[-1] > 8 else 4
+    tile_in = 128 * dims[0] + 16
+    out_bytes = 128 * dims[-1]
+    for wgs in range(2 if max_k == 256 else 4, 0, -1):
+        avail = SMEM_BUDGET - weight_bytes - wgs * out_bytes
+        stages = min(max(avail, 0) // (wgs * tile_in), MAX_STAGES)
+        if stages >= 1:
+            return {"k_pad": k_pad, "n_cov": n_cov,
+                    "full_layers": layers - 1 - fused,
+                    "weight_bytes": weight_bytes, "max_k": max_k,
+                    "out_regs": out_regs, "wgs": wgs, "stages": stages,
+                    "tile_in_bytes": tile_in, "out_bytes": out_bytes,
+                    "smem_bytes": weight_bytes
+                    + wgs * (stages * tile_in + out_bytes)}
+    return None
+
+
+def is_resident(dtype: torch.dtype, dims: Sequence[int]) -> bool:
+    """Whether the C entry point runs these widths on the resident kernel."""
+    return dtype == torch.bfloat16 and resident_plan(dims) is not None
+
+
+def streamed_weights(weights: Sequence[torch.Tensor]) -> list:
+    """Zero-padded copies of the weights in the streamed kernel's slice
+    layout (csrc/fused_mlp.cu Mlp::w): bf16 W^T as [round_up(d_out, 64),
     round_up(d_in, 64)], fp32 W as [round_up(d_in, 32), round_up(d_out,
-    64)], so every weight slice the kernel copies is whole."""
+    64)], so every weight slice it copies is whole."""
     out = []
     for w in weights:
         k, n = w.shape
@@ -85,9 +147,35 @@ def kernel_weights(weights: Sequence[torch.Tensor]) -> list:
     return out
 
 
+def kernel_weights(weights: Sequence[torch.Tensor]) -> list:
+    """The weights as the C entry point reads them for their widths and
+    dtype: as the caller holds them, [d_in, d_out] with no copy, on the
+    resident kernel; `streamed_weights` otherwise."""
+    dims = [w.shape[0] for w in weights] + [weights[-1].shape[1]]
+    if is_resident(weights[0].dtype, dims):
+        return list(weights)
+    return streamed_weights(weights)
+
+
+def launch(lib, x: torch.Tensor, kernel_ws: Sequence[torch.Tensor],
+           dims: Sequence[int], out: torch.Tensor) -> None:
+    """One call of `lib`'s fused_mlp_fwd on x's stream, with the weights
+    already in the layout it reads (`kernel_weights`); raises on a nonzero
+    status."""
+    ptrs = (ctypes.c_void_p * len(kernel_ws))(
+        *[w.data_ptr() for w in kernel_ws])
+    dims_c = (ctypes.c_int32 * len(dims))(*dims)
+    with torch.cuda.device(x.device):
+        status = lib.fused_mlp_fwd(
+            x.data_ptr(), ptrs, dims_c, len(kernel_ws), x.shape[0],
+            out.data_ptr(), _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check(status, "fused_mlp_fwd")
+
+
 def fused_mlp_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor]
                   ) -> torch.Tensor:
-    """The forward without autograd: the CUDA kernel for CUDA tensors, the
+    """The forward without autograd: a CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if not x.is_cuda and not any(w.is_cuda for w in weights):
         with torch.no_grad():
@@ -99,20 +187,18 @@ def fused_mlp_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor]
     out = torch.empty((n, dims[-1]), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    lib = kernels.load()
-    padded = kernel_weights(weights)
-    ptrs = (ctypes.c_void_p * len(padded))(*[w.data_ptr() for w in padded])
-    dims_c = (ctypes.c_int32 * len(dims))(*dims)
-    with torch.cuda.device(x.device):
-        status = lib.fused_mlp_fwd(
-            x.data_ptr(), ptrs, dims_c, len(weights), n, out.data_ptr(),
-            _DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
-    kernels.check(status, "fused_mlp_fwd")
+    launch(kernels.load(), x, kernel_weights(weights), dims, out)
     fused_mlp_fwd.launches += 1
+    if is_resident(x.dtype, dims):
+        fused_mlp_fwd.launches_resident += 1
+    elif x.dtype == torch.bfloat16:
+        fused_mlp_fwd.launches_streamed += 1
     return out
 
 
-fused_mlp_fwd.launches = 0
+fused_mlp_fwd.launches = 0            # every launch
+fused_mlp_fwd.launches_resident = 0   # bf16 on the resident kernel
+fused_mlp_fwd.launches_streamed = 0   # bf16 on the streamed kernel
 
 
 class _FusedMLP(torch.autograd.Function):

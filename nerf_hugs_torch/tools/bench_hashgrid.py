@@ -28,10 +28,12 @@ order given, and reports the steps/s over steps 9 to the last from the
 driver's print lines. A RUN is `base-synthetic` (the default: Dense
 kubric_nerfacto_base on the procedural scene of hashgrid_inputs.base_yaml),
 `base-kubric` (the same on the scene of hashgrid_inputs.write_kubric_scene,
-through the kubric loader) or `hanerf-kubric` (hashgrid_inputs.hanerf_yaml
-on that scene). With --profile it then runs, per distinct ROOT and RUN, 8
-warm-up and 5 profiled train steps under torch.profiler and reports device
-ms per step of the hash-grid kernels and of all kernels.
+through the kubric loader), `hanerf-kubric` (hashgrid_inputs.hanerf_yaml
+on that scene) or `fused-synthetic` (base-synthetic with enable_tcnn_mlp on
+for the field and the proposal). With --profile it then runs, per distinct
+ROOT and RUN, 8 warm-up and 5 profiled train steps under torch.profiler and
+reports device ms per step of the hash-grid kernels, of the fused MLP's
+forward kernels and of all kernels.
 
 Needs a card; the builds need nvcc.
 """
@@ -57,9 +59,10 @@ from nerf_hugs_torch.tools import hashgrid_inputs
 RUNS = 10
 
 
-def build_baseline(src: str, tmp: str):
+def build_baseline(src: str, tmp: str,
+                   names=("hashgrid_fwd", "hashgrid_bwd")):
     """Build `src` with the flags of ops/kernels.py into a library in `tmp`
-    and bind its hash-grid entry points with the package's signatures."""
+    and bind its entry points `names` with the package's signatures."""
     path = os.path.join(tmp, "libbaseline.so")
     proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", path,
                            src], stdout=subprocess.PIPE,
@@ -70,7 +73,7 @@ def build_baseline(src: str, tmp: str):
         if re.search(r"Used \d+ registers|spill", line):
             print(f"ptxas baseline: {line.strip()}", flush=True)
     lib = ctypes.CDLL(path)
-    for name in ("hashgrid_fwd", "hashgrid_bwd"):
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = kernels.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -238,12 +241,14 @@ def profile_steps(root: str, cfg: str, data_dir: str, warm: int = 8,
     group = lambda key: sum(v[0] for k, v in ms.items() if key in k)
     return {"hashgrid_fwd_ms": group("hashgrid_fwd"),
             "hashgrid_bwd_ms": group("hashgrid_bwd"),
+            "fused_mlp_ms": group("fused_mlp"),
             "device_ms": sum(v[0] for v in ms.values()),
             "hashgrid_kernels": {k: v for k, v in ms.items()
                                  if "hashgrid" in k}}
 
 
-RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-kubric")
+RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-kubric",
+              "fused-synthetic")
 
 
 def run_inputs(run: str, tmp: str, steps: int):
@@ -253,8 +258,8 @@ def run_inputs(run: str, tmp: str, steps: int):
         hashgrid_inputs.write_kubric_scene(scene)
     if run == "hanerf-kubric":
         return hashgrid_inputs.hanerf_yaml(tmp, steps=steps), scene
-    scene_name = run.split("-")[1]
-    cfg = hashgrid_inputs.base_yaml(tmp, fused=False, steps=steps,
+    mlp, scene_name = run.split("-")
+    cfg = hashgrid_inputs.base_yaml(tmp, fused=mlp == "fused", steps=steps,
                                     scene=scene_name)
     return cfg, (scene if scene_name == "kubric" else tmp)
 
@@ -281,7 +286,8 @@ def train_main(args) -> dict:
                     report["profiles"][f"{root} {run}"] = prof
                     print(f"profile {root} {run}: per step hashgrid_fwd "
                           f"{prof['hashgrid_fwd_ms']:.3f} ms, hashgrid_bwd "
-                          f"{prof['hashgrid_bwd_ms']:.3f} ms, all kernels "
+                          f"{prof['hashgrid_bwd_ms']:.3f} ms, fused MLP "
+                          f"forward {prof['fused_mlp_ms']:.3f} ms, all kernels "
                           f"{prof['device_ms']:.3f} ms; "
                           f"{prof['hashgrid_kernels']}", flush=True)
     return report

@@ -1,8 +1,9 @@
-"""The hash-grid kernels' inputs at kubric_nerfacto_base and
-distractor_nerfacto_hanerf, for the smoke run and the hash-grid benchmark:
-the grids' specs, the main path's sample shapes, a procedural scene in the
-kubric layout, the configs on it, and the positions and output gradients
-the full-width model hands its encoders in one step, captured with hooks.
+"""The kernels' inputs at kubric_nerfacto_base and
+distractor_nerfacto_hanerf, for the smoke run and the benchmarks: the
+grids' specs, the main path's sample and fused-MLP shapes, a procedural
+scene in the kubric layout, the configs on it, and the positions and output
+gradients the full-width model hands its encoders in one step, captured
+with hooks.
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ GRIDS = (
     ("tpu proposal", dict(num_levels=5, log2_hashmap_size=17, base_res=16,
                           max_res=512), None),
 )
+# The fused-MLP shapes of kubric_nerfacto_base with enable_tcnn_mlp: (name,
+# samples per ray, layer widths); the rows are BATCH times the samples per
+# ray.
+FUSED_SHAPES = (("proposal mlp_base", 256, (14, 64, 1)),
+                ("field mlp_base", 128, (32, 256, 65)),
+                ("field mlp_head", 128, (80, 256, 256, 3)))
 # The HA-NeRF implicit mask's 2-D grid sees one position per ray.
 MASK_N = BATCH
 # configs/nerfacto/{kubric_nerfacto_base,distractor_nerfacto_hanerf}.yml of

@@ -139,15 +139,23 @@ def test_helper_init_and_kernel_argument_checks():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_weight_layout(dtype):
-    """The zero-padded slice layout the kernel copies from: W^T in bf16,
-    W in fp32."""
+    """What the kernel reads: in bf16 the resident kernel takes the weights
+    as they are (no copy); fp32, and the streamed bf16 kernel, take the
+    zero-padded slice layout, W in fp32 and W^T in bf16."""
     _, weights, _ = make_inputs((80, 256, 3), 1)
     ws = [as_torch(w, dtype) for w in weights]
-    padded = tfm.kernel_weights(ws)
+    got = tfm.kernel_weights(ws)
+    if dtype == "bfloat16":
+        assert all(k is w for k, w in zip(got, ws))
+    streamed = tfm.streamed_weights(ws)
+    if dtype == "float32":
+        assert [p.data_ptr() for p in got] != [w.data_ptr() for w in ws]
+        for p, q in zip(got, streamed):
+            torch.testing.assert_close(p, q, rtol=0, atol=0)
     want_shapes = {"bfloat16": [(256, 128), (64, 256)],
                    "float32": [(96, 256), (256, 64)]}[dtype]
-    assert [tuple(p.shape) for p in padded] == want_shapes
-    for p, w in zip(padded, ws):
+    assert [tuple(p.shape) for p in streamed] == want_shapes
+    for p, w in zip(streamed, ws):
         w = w.t() if dtype == "bfloat16" else w
         assert p.dtype == w.dtype and p.is_contiguous()
         torch.testing.assert_close(p[:w.shape[0], :w.shape[1]], w, rtol=0,
@@ -245,18 +253,39 @@ def cuda():
     return torch.device("cuda")
 
 
+# (widths, dtype, rows, rows skipped at the start of x): every width in
+# both dtypes at 2100 rows, then the bf16 resident kernel's edges: n below
+# one tile, n not a multiple of 64, x starting one row in (not 16-byte
+# aligned where 2 d_in is not a multiple of 16), widths 1 and 256, 8
+# layers, the widest shipped head (one warpgroup a block), and 8 layers of
+# 256, which no block can hold (the streamed kernel).
+KERNEL_CASES = [(dims, dtype, 2100, 0) for dims in WIDTHS
+                for dtype in ("float32", "bfloat16")] + [
+    (dims, "bfloat16", n, skip) for dims, n, skip in (
+        ((14, 64, 1), 37, 0), ((80, 256, 256, 3), 4097, 1),
+        ((32, 256, 65), 100, 1), ((1, 256), 129, 0), ((256, 256), 64, 0),
+        ((256, 1), 65, 1), ((17, 48, 24, 5), 1000, 1), ((32,) * 9, 513, 0),
+        ((128, 256, 256, 3), 300, 1), ((256,) * 9, 200, 1))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dims", WIDTHS)
-def test_kernel_matches_plain_version(cuda, dims, dtype):
+@pytest.mark.parametrize("dims,dtype,n,skip", KERNEL_CASES)
+def test_kernel_matches_plain_version(cuda, dims, dtype, n, skip):
     x, weights, _ = make_inputs(dims, 3)
-    xt = as_torch(np.concatenate([x] * 7), dtype).to(cuda)  # 2100 rows
+    rows = np.concatenate([x] * (-(-(n + skip) // x.shape[0])))[:n + skip]
+    xt = as_torch(rows, dtype).to(cuda)[skip:]
     wt = [as_torch(w, dtype).to(cuda) for w in weights]
-    before = tfm.fused_mlp_fwd.launches
-    got = tfm.fused_mlp_fwd(xt, wt)
-    assert tfm.fused_mlp_fwd.launches == before + 1
+    fwd = tfm.fused_mlp_fwd
+    before = (fwd.launches, fwd.launches_resident, fwd.launches_streamed)
+    got = fwd(xt, wt)
+    resident = tfm.is_resident(xt.dtype, dims)
+    bf16 = dtype == "bfloat16"
+    assert (fwd.launches, fwd.launches_resident, fwd.launches_streamed) == (
+        before[0] + 1, before[1] + resident,
+        before[2] + (bf16 and not resident))
     want = tfm.fused_mlp_plain(xt, wt)
     torch.cuda.synchronize()
+    assert got.shape == (n, dims[-1])
     assert_close_to_max(got.float().cpu(), want.float().cpu(), TOL[dtype])
     with pytest.raises(ValueError):
         tfm.fused_mlp_fwd(xt, [w.t() for w in wt])
