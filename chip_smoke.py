@@ -27,14 +27,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      ulps (2^-7) of the output's largest entry and in fp32 within 1e-5 of
      it, also on a ragged, unaligned span of 4097 rows, then the median of
      10 timed runs of each beside the kernel alone from a profiler trace
-     and, in bf16, the cuBLAS bf16 chain (torch.matmul + relu per layer);
+     and the cuBLAS chain in the same dtype (torch.matmul + relu per layer;
+     fp32 with TF32 off);
      then bf16 at every width of configs/nerfacto/*nerfacto*.yml and at
      edge widths (1, 256, odd, 8 layers) at small n, below one tile and
      ragged from row 1, each call checked to take the kernel its widths
      route to (8 layers of 256: the streamed kernel, the rest resident);
   5. a small model on the card (kernels) against the same weights on the
      CPU (plain versions), loss and every parameter gradient, with the
-     Dense MLPs and with enable_tcnn_mlp on for the field and the proposal;
+     Dense MLPs, with enable_tcnn_mlp on for the field and the proposal,
+     as NeRF-W (transient head, uncertainty) and as RobustNeRF (patch
+     mask under a carried threshold of 0.2);
   3b. the d = 2 hash-grid kernels (HA-NeRF's implicit mask: 16 levels of
      2^19 rows, resolution 16 to 2048) against their plain versions at the
      mask's spec, for both hash_impls, on [16384, 2] pixel-centre positions
@@ -44,7 +47,7 @@ Phases, each fatal on failure (exit code 1, no result line):
   6. the hash-grid kernels on the main path's own inputs: one batch of
      compute_loss + backward through the full-width kubric_nerfacto_base
      model of phase 7, and through the full-width HA-NeRF model of phase
-     10, on the card, with hooks on the field's and the proposal's
+     10 on its distractor scene, on the card, with hooks on the field's and the proposal's
      HashGridEncoding (and on the HA-NeRF model's implicit_mask.hashgrid)
      capturing the grid positions and output gradients they receive; the
      kernels checked against their plain versions on them and timed, with
@@ -66,18 +69,39 @@ Phases, each fatal on failure (exit code 1, no result line):
      PNGs the eval wrote;
   9. the planar-accumulate kernel against its plain version on the gathers
      of n = 2^21 samples from dense levels of 81^3 and 127^3 rows, and on a
-     ragged span of them (within 1e-5 absolute), with timings, then the
+     ragged span of them (within 1e-5 absolute), with timings beside one
+     torch.einsum over the same rows laid out beforehand, then the
      microbenchmark `nerf_hugs_torch.tools.bench_fwd_copies` through its
      entry point at n = 2^21, with the kernel's launch counter read around
      it;
   10. HA-NeRF: 8 train steps of configs/nerfacto/distractor_nerfacto_hanerf
      .yml, its model section unchanged (appearance and transient
      embeddings, two proposal nets, the 2-D implicit mask, 512 + 256 + 128
-     samples per ray), on the kubric scene of phase 7 (only the base
-     section's data and cadence keys change), then
-     `nerf_hugs_torch.eval.main` on 2 test images, with every launch
-     counter read around each; the d = 2 kernels must launch in both.
-Each hash-grid timing line also gives the kernels' own device time from a
+     samples per ray), on a capture written in the distractor layout
+     (`hashgrid_inputs.write_colmap_scene`: 32 train and 4 test frames of
+     the procedural sphere world at 256x256 in 0/images_8/, one OPENCV
+     camera with small distortion at 8x, 4096 SfM points on the sphere,
+     data_split.json, a random opaque square and its static mask per
+     train frame) read by the config's own distractor loader (only the
+     base section's cadence keys change), then `nerf_hugs_torch.eval.main`
+     on 2 test images, with every launch counter read around each; the
+     d = 2 kernels must launch in both;
+  11. RobustNeRF: 8 train steps of configs/nerfacto/distractor_nerfacto_
+     robustnerf0.8.yml, model section unchanged, on the distractor capture
+     of phase 10; the inlier threshold each step hands the next is printed
+     and must be finite and move after step 1; then an eval of 2 test
+     images;
+  12. NeRF-W: configs/nerfacto/phototourism_nerfacto_nerfw.yml, model
+     section unchanged, on a capture in the phototourism layout (the same
+     world on a 120-degree arc, one PINHOLE camera per frame at 512x512,
+     halved by the loader, a .tsv split), 8 train steps and then 4 steps of
+     its finetune stage (finetune_num_steps overridden) with the launch
+     counters read around each stage: hashgrid_bwd must launch in the
+     train stage and never in the finetune stage (only
+     appearance_embedding trains); the beta and density terms must be
+     finite; then an eval of 2 test images from the finetune checkpoint.
+Each train run prints its steps/s over steps 2-8 and its peak device
+memory. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
 one wrapper call mostly see the host's launch path. Beside each timed
 kernel it prints its bound: the least time the card could
@@ -510,15 +534,14 @@ def fused_mlp_phase(torch, fused_mlp, dev):
                 nbytes(x, out_p, *ws),
                 2 * n * sum(a * b for a, b in zip(dims[:-1], dims[1:])),
                 dtype_name)
-            library = ""
-            if dtype_name == "bfloat16":
-                # The cuBLAS bf16 chain: one torch.matmul (+ relu) per
-                # layer, a yardstick the port never calls.
-                chain_rel = float((cublas_chain(x, ws).float()
-                                   - out_p.float()).abs().max()) / scale
-                t["library_ms"] = median_ms(lambda: cublas_chain(x, ws))
-                library = (f", cuBLAS bf16 chain {t['library_ms']:.3f} ms "
-                           f"(max_rel {chain_rel:.3e})")
+            # The cuBLAS chain in the same dtype (fp32 with TF32 off): one
+            # torch.matmul (+ relu) per layer, a yardstick the port never
+            # calls.
+            chain_rel = float((cublas_chain(x, ws).float()
+                               - out_p.float()).abs().max()) / scale
+            t["library_ms"] = median_ms(lambda: cublas_chain(x, ws))
+            library = (f", cuBLAS {dtype_name} chain "
+                       f"{t['library_ms']:.3f} ms (max_rel {chain_rel:.3e})")
             timings[(name, dtype_name)] = t
             alone = ("not measured" if t["alone"] is None
                      else f"{t['alone']:.3f} ms")
@@ -585,7 +608,23 @@ model:
 """
 
 
-def small_model_phase(torch, tmp, dev, fused: bool):
+# The small model's variants beyond the Dense base: (base keys, model
+# keys). RobustNeRF's inner patch of 2 fits the 4x4 patches.
+SMALL_VARIANTS = {
+    "Dense MLPs": ({}, {}),
+    "fused MLPs": ({}, None),
+    "NeRF-W": ({}, {"use_appearance_embedding": True,
+                    "appearance_embedding_dim": 8,
+                    "use_transient_embedding": True,
+                    "transient_embedding_dim": 8, "hidden_dim_transient": 16,
+                    "transient_type": "nerfw"}),
+    "RobustNeRF": ({"robustnerf_inner_patch_size": 2},
+                   {"transient_type": "robustnerf",
+                    "robustnerf_inlier_quantile": 0.8}),
+}
+
+
+def small_model_phase(torch, tmp, dev, variant: str):
     """A small model through the kernels on the card vs the same weights
     through the plain versions on the CPU."""
     import yaml
@@ -595,8 +634,11 @@ def small_model_phase(torch, tmp, dev, fused: bool):
     from nerf_hugs_torch.train import driver
     from nerf_hugs_torch.train.step import compute_loss
     raw = yaml.safe_load(SMALL_YAML)
-    if fused:
-        raw["model"] = fused_overlay(raw["model"])
+    base, model_keys = SMALL_VARIANTS[variant]
+    fused = model_keys is None
+    raw["base"].update(base)
+    raw["model"] = (fused_overlay(raw["model"]) if fused
+                    else {**raw["model"], **model_keys})
     path = os.path.join(tmp, "small.yml")
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -609,7 +651,18 @@ def small_model_phase(torch, tmp, dev, fused: bool):
         check(model.field.mlp_head.fused == fused
               and model.proposal_0.mlp_base.fused == fused,
               "the small model's MLPs do not follow enable_tcnn_mlp")
-        loss, _ = compute_loss(model, batch.to(device), 0.3, config, None)
+        thresholds = torch.full((config.num_ray_levels,), 0.2,
+                                device=device)
+        loss, stats = compute_loss(model, batch.to(device), 0.3, config,
+                                   None, thresholds)
+        check(set(stats["losses"]) >= {
+            "NeRF-W": {"beta", "density"}}.get(variant, {"data"}),
+            f"the small {variant} model's loss has terms "
+            f"{sorted(stats['losses'])}")
+        if variant == "RobustNeRF":
+            mask = float(stats["robust_mask"][0])
+            check(0 < mask < 1, f"the robust mask keeps {mask} of the "
+                                "pixels: it does not bite")
         loss.backward()
         results[device] = (loss.item(), {
             k: p.grad.detach().cpu() for k, p in model.named_parameters()})
@@ -618,14 +671,13 @@ def small_model_phase(torch, tmp, dev, fused: bool):
     grad_rel = max(float((grads_g[k] - grads_c[k]).abs().max())
                    / max(float(grads_c[k].abs().max()), 1e-30)
                    for k in grads_c)
-    mlp = "fused MLPs" if fused else "Dense MLPs"
-    print(f"check small model ({mlp}) cuda vs cpu: loss {loss_g:.6f} vs "
-          f"{loss_c:.6f} (rel {loss_rel:.2e}); worst gradient error "
+    print(f"check small model ({variant}) cuda vs cpu: loss {loss_g:.6f} "
+          f"vs {loss_c:.6f} (rel {loss_rel:.2e}); worst gradient error "
           f"{grad_rel:.2e} of the leaf's max", flush=True)
     check(math.isfinite(loss_g) and loss_rel <= 1e-5,
-          f"small-model loss differs between cuda and cpu ({mlp})")
+          f"small-model loss differs between cuda and cpu ({variant})")
     check(grad_rel <= 1e-4, f"small-model gradients differ between cuda "
-                            f"and cpu ({mlp})")
+                            f"and cpu ({variant})")
 
 
 def launch_counters():
@@ -688,44 +740,71 @@ NEVER = ("fused_mlp_fwd_streamed",)
 HANERF = DENSE + ("hashgrid_fwd_2d", "hashgrid_bwd_2d")
 
 
+def stage_lines(log: str, stage: str):
+    """[(step, loss, steps/s, {term: value})] of a stage's print lines."""
+    lines = re.finditer(rf"\[{stage}\] (\d+)/\d+: loss=(\S+) psnr=\S+ "
+                        r"lr=\S+ (\S+) steps/s \S+ rays/s(.*)", log)
+    return [(int(m.group(1)), float(m.group(2)), float(m.group(3)),
+             dict(t.split("=") for t in m.group(4).split())) for m in lines]
+
+
 def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
-                tag: str, expected):
-    """8 full-width steps of `cfg_path` through the driver; checks that
-    every kernel of `expected` launched and no other hash-grid or MLP
-    kernel did; returns the kernel launches."""
+                tag: str, expected, finetune_steps: int = 0):
+    """8 full-width steps of `cfg_path` through the trainer, and its
+    finetune stage of `finetune_steps` when it has one; the launch
+    counters are set to 0 before each stage and read after it. Checks that
+    every kernel of `expected` launched in the train stage and no other
+    hash-grid or MLP kernel did; returns ({stage: kernel launches},
+    {stage: the print lines' loss terms})."""
+    from nerf_hugs_torch.train import driver
     from nerf_hugs_torch.train import main as train_main
-    reset_launches()
+    launches = {}
+    run_stage = driver.run_stage
+
+    def counted_stage(stage, *args):
+        reset_launches()
+        run_stage(stage, *args)
+        torch.cuda.synchronize()
+        launches[stage] = read_launches()
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    train_main(["--config", cfg_path, "--data_dir", data_dir, "--save_dir",
-                save_dir, "--device", "cuda"])
+    driver.run_stage = counted_stage
+    try:
+        train_main(["--config", cfg_path, "--data_dir", data_dir,
+                    "--save_dir", save_dir, "--device", "cuda"])
+    finally:
+        driver.run_stage = run_stage
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     with open(os.path.join(save_dir, "run_log.log")) as f:
         log = f.read()
-    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)),
-              m.group(4))
-             for m in re.finditer(r"\[train\] (\d+)/\d+: loss=(\S+) "
-                                  r"psnr=\S+ lr=\S+ (\S+) steps/s \S+ "
-                                  r"rays/s(.*)", log)]
-    evals = re.findall(r"\[train\] \d+: eval psnr=(\S+)", log)
-    check([s[0] for s in steps] == list(range(1, 9)),
-          f"expected print lines for steps 1..8, got {steps}")
-    check(all(math.isfinite(s[1]) for s in steps),
-          "non-finite training loss")
-    terms = [dict(t.split("=") for t in s[3].split()) for s in steps]
-    check(all(math.isfinite(float(v)) for t in terms for v in t.values()),
-          f"non-finite loss terms: {terms}")
-    check(all(launches[k] > 0 for k in expected),
-          f"a kernel was not launched during training: {launches}")
-    check(all(launches[k] == 0 for k in FUSED + HANERF + NEVER
+    stages = {"train": 8, "finetune": finetune_steps}
+    check(sorted(launches) == sorted(k for k, v in stages.items() if v),
+          f"stages run: {sorted(launches)}")
+    lines = {stage: stage_lines(log, stage) for stage in stages}
+    for stage, n in stages.items():
+        check([s[0] for s in lines[stage]] == list(range(1, n + 1)),
+              f"expected {stage} print lines for steps 1..{n}, got "
+              f"{lines[stage]}")
+        check(all(math.isfinite(s[1]) for s in lines[stage]),
+              f"non-finite {stage} loss")
+    steps = lines["train"]
+    terms = {stage: [s[3] for s in lines[stage]] for stage in stages}
+    check(all(math.isfinite(float(v)) for t in terms["train"]
+              for k, v in t.items() if k != "inlier_threshold"),
+          f"non-finite loss terms: {terms['train']}")
+    train = launches["train"]
+    check(all(train[k] > 0 for k in expected),
+          f"a kernel was not launched during training: {train}")
+    check(all(train[k] == 0 for k in FUSED + HANERF + NEVER
               if k not in expected),
-          f"the {tag} run launched a kernel off its path: {launches}")
+          f"the {tag} run launched a kernel off its path: {train}")
     check(os.path.exists(os.path.join(save_dir, "checkpoint_8.pt")),
           "no step-8 checkpoint")
+    evals = re.findall(r"\[train\] \d+: eval psnr=(\S+)", log)
     check(len(evals) == 1 and math.isfinite(float(evals[0])),
           "the final eval printed no PSNR")
     # Steps 2..8, each timed from the previous print to its own (the
@@ -733,9 +812,9 @@ def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     rate = 7 / sum(1 / s[2] for s in steps[1:])
     print(f"train ({tag}): 8 steps in {wall:.1f} s; steps/s after the "
           f"first step {rate:.3f} ({rate * 16384:.0f} rays/s); losses "
-          f"{[round(s[1], 5) for s in steps]}; step-8 terms {terms[-1]}; "
-          f"eval psnr {evals[0]}; peak device memory {peak / 2**30:.2f} "
-          f"GiB; launches {launches}", flush=True)
+          f"{[round(s[1], 5) for s in steps]}; step-8 terms "
+          f"{terms['train'][-1]}; eval psnr {evals[0]}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {train}", flush=True)
     return launches, terms
 
 
@@ -749,10 +828,12 @@ def png_psnr(pred_path: str, gt_path: str) -> float:
 
 
 def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
-               tag: str, expected, score: bool):
-    """nerf_hugs_torch.eval on a run's checkpoint (checks that the forward
-    kernels of `expected` launched), then, with `score`, the scoring CLI
-    over the PNGs it wrote; returns the eval's kernel launches."""
+               tag: str, expected, score: bool,
+               summary: str = "metrics_test_8.txt"):
+    """nerf_hugs_torch.eval on a run's newest checkpoint (checks that the
+    forward kernels of `expected` launched and that it wrote `summary`),
+    then, with `score`, the scoring CLI over the PNGs it wrote; returns the
+    eval's kernel launches."""
     from nerf_hugs_torch.eval import main as eval_main
     from nerf_hugs_torch.metrics import main as score_main
     reset_launches()
@@ -771,8 +852,8 @@ def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     colors = sorted(f for f in os.listdir(preds) if f.endswith("_color.png"))
     check(colors == ["000_color.png", "001_color.png"],
           f"eval wrote {colors}")
-    summary_path = os.path.join(save_dir, "metrics_test_8.txt")
-    check(os.path.exists(summary_path), "eval wrote no metrics_test_8.txt")
+    summary_path = os.path.join(save_dir, summary)
+    check(os.path.exists(summary_path), f"eval wrote no {summary}")
     with open(summary_path) as f:
         mean = {k: float(v) for k, v in (line.split() for line in f)}
     check(math.isfinite(mean["psnr"]) and math.isfinite(mean["psnr_cc"])
@@ -812,6 +893,46 @@ def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     return launches
 
 
+def robust_phase(torch, cfg_path: str, data_dir: str, save_dir: str):
+    """Phase 11: RobustNeRF's 8 steps and an eval; the threshold each step
+    hands the next must be finite and move after step 1."""
+    _, terms = train_phase(torch, cfg_path, data_dir, save_dir,
+                           "RobustNeRF, distractor scene", DENSE)
+    thresholds = [[float(v) for v in t["inlier_threshold"].split(",")]
+                  for t in terms["train"]]
+    print(f"robust thresholds handed on by steps 1..8: {thresholds}",
+          flush=True)
+    check(all(math.isfinite(v) and v > 0 for t in thresholds for v in t),
+          f"non-finite RobustNeRF thresholds: {thresholds}")
+    check(thresholds[0] != [1.0] and any(t != thresholds[0]
+                                         for t in thresholds[1:]),
+          f"the RobustNeRF threshold does not move: {thresholds}")
+    eval_phase(torch, cfg_path, data_dir, save_dir, "RobustNeRF", DENSE,
+               score=False)
+
+
+def nerfw_phase(torch, cfg_path: str, data_dir: str, save_dir: str):
+    """Phase 12: NeRF-W's 8 train and 4 finetune steps and an eval of the
+    finetune checkpoint; the finetune stage trains appearance_embedding
+    alone, so the table-gradient kernel must not launch there."""
+    launches, terms = train_phase(torch, cfg_path, data_dir, save_dir,
+                                  "NeRF-W, phototourism scene", DENSE,
+                                  finetune_steps=4)
+    check(all(math.isfinite(float(t[k])) for t in terms["train"]
+              for k in ("beta", "density")),
+          f"the NeRF-W steps lack finite beta/density terms: {terms}")
+    check(all(set(t) == {"data"} for t in terms["finetune"]),
+          f"the finetune stage's loss is not the data term alone: {terms}")
+    ft = launches["finetune"]
+    check(ft["hashgrid_fwd"] > 0 and ft["hashgrid_bwd"] == 0,
+          f"the finetune stage ran the table gradient: {ft}")
+    print(f"finetune (NeRF-W): 4 steps, losses "
+          f"{[t['data'] for t in terms['finetune']]}; launches {ft}",
+          flush=True)
+    eval_phase(torch, cfg_path, data_dir, save_dir, "NeRF-W finetuned",
+               DENSE, score=False, summary="metrics_test_finetune_4.txt")
+
+
 def accum_phase(torch, dev):
     """Phase 9: the planar-accumulate kernel against its plain version,
     then the microbenchmark through its entry point; returns the worst abs
@@ -840,6 +961,16 @@ def accum_phase(torch, dev):
         t = {"ms": median_ms(lambda: accum.planar_accum(*vals, w)),
              "plain_ms": median_ms(
                  lambda: accum.planar_accum_plain(*vals, w))}
+        # The yardstick: one einsum over the same gathered rows and weights,
+        # laid out beforehand as [4 corners, n, 2 halves, F] and [4, n, 2]
+        # (outside the timing).
+        rows = torch.stack(vals).view(4, ACCUM_N, 2, accum.F)
+        halves = w.view(2, 4, ACCUM_N).permute(1, 2, 0).contiguous()
+        library = lambda: torch.einsum("cnh,cnhf->nf", halves, rows)
+        lib_err = float((library() - out_k).abs().max())
+        check(lib_err <= 1e-5, f"the einsum yardstick disagrees with "
+                               f"planar_accum: {lib_err}")
+        t["library_ms"] = median_ms(library)
         # 16 products and 16 sums per sample.
         t["bound_ms"], t["bound_by"] = bound(nbytes(*vals, w, out_k),
                                              32 * ACCUM_N)
@@ -847,14 +978,16 @@ def accum_phase(torch, dev):
         print(f"check planar_accum, gathers of {ACCUM_N} samples from "
               f"{N}^3 rows: max_abs={err:.3e} (ragged span {sub_err:.3e}, "
               f"tol 1e-5); kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"{t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms "
+              f"(max_abs {lib_err:.3e}), bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}, {nbytes(*vals, w, out_k) / 1e6:.1f} MB)",
               flush=True)
         check(math.isfinite(err) and max(err, sub_err) <= 1e-5,
               f"planar_accum disagrees with its plain version ({N}^3 "
               f"rows): {err}, ragged span {sub_err}")
         worst = max(worst, err, sub_err)
-        del tab2, idx, w, vals, out_k, out_p, sub, sub_k, sub_p
+        del tab2, idx, w, vals, out_k, out_p, sub, sub_k, sub_p, rows, \
+            halves
 
     reset_launches()
     t0 = time.time()
@@ -891,7 +1024,8 @@ def main() -> None:
 
     from nerf_hugs_torch.ops import fused_mlp, hashgrid, hashgrid_bwd, kernels
     from nerf_hugs_torch.tools.hashgrid_inputs import (
-        MASK_N, base_yaml, hanerf_yaml, write_kubric_scene)
+        MASK_N, base_yaml, shipped_yaml, write_colmap_scene,
+        write_kubric_scene)
     from nerf_hugs_torch.utils.device import pin_fp32_precision
     pin_fp32_precision()
     kernels.load()
@@ -909,21 +1043,28 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
         scene = write_kubric_scene(os.path.join(tmp, "kubric"))
-        print(f"scene: 32 train + 4 test kubric frames of 256x256 written "
-              f"in {time.time() - t0:.1f} s", flush=True)
-        small_model_phase(torch, tmp, dev, fused=False)
-        small_model_phase(torch, tmp, dev, fused=True)
+        distractor = write_colmap_scene(os.path.join(tmp, "distractor"),
+                                        "distractor")
+        phototourism = write_colmap_scene(os.path.join(tmp, "photo"),
+                                          "phototourism")
+        print(f"scenes: 32 train + 4 test frames each, kubric and "
+              f"distractor at 256x256, phototourism at 512x512, written in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        for variant in SMALL_VARIANTS:
+            small_model_phase(torch, tmp, dev, variant)
         dense_cfg = base_yaml(tmp, fused=False, scene="kubric")
-        hanerf_cfg = hanerf_yaml(tmp)
+        hanerf_cfg = shipped_yaml(tmp, "distractor_nerfacto_hanerf")
         captured_worst, _ = captured_phase(torch, hashgrid, hashgrid_bwd,
                                            dense_cfg, scene, dev)
         worst = {k: max(v, captured_worst[k]) for k, v in worst.items()}
         captured_worst, captured_2d = captured_phase(
-            torch, hashgrid, hashgrid_bwd, hanerf_cfg, scene, dev, ("mask",))
+            torch, hashgrid, hashgrid_bwd, hanerf_cfg, distractor, dev,
+            ("mask",))
         worst_2d = {k: max(v, captured_worst[k]) for k, v in worst_2d.items()}
         launches, _ = train_phase(torch, dense_cfg, scene,
                                   os.path.join(tmp, "exp", "dense"),
                                   "Dense MLPs, kubric scene", DENSE)
+        launches = launches["train"]
         fused_cfg = base_yaml(tmp, fused=True)
         fused_dir = os.path.join(tmp, "exp", "fused")
         train_phase(torch, fused_cfg, tmp, fused_dir,
@@ -932,12 +1073,19 @@ def main() -> None:
                                    "fused MLPs", FUSED, score=True)
         hanerf_dir = os.path.join(tmp, "exp", "hanerf")
         hanerf_launches, terms = train_phase(
-            torch, hanerf_cfg, scene, hanerf_dir, "HA-NeRF, kubric scene",
-            HANERF)
-        check(all(float(t["mask_size"]) > 0 for t in terms),
+            torch, hanerf_cfg, distractor, hanerf_dir,
+            "HA-NeRF, distractor scene", HANERF)
+        hanerf_launches = hanerf_launches["train"]
+        check(all(float(t["mask_size"]) > 0 for t in terms["train"]),
               f"the HA-NeRF steps have no mask_size term: {terms}")
-        eval_phase(torch, hanerf_cfg, scene, hanerf_dir, "HA-NeRF", HANERF,
-                   score=False)
+        eval_phase(torch, hanerf_cfg, distractor, hanerf_dir, "HA-NeRF",
+                   HANERF, score=False)
+        robust_phase(torch, shipped_yaml(
+            tmp, "distractor_nerfacto_robustnerf0.8"), distractor,
+            os.path.join(tmp, "exp", "robustnerf"))
+        nerfw_phase(torch, shipped_yaml(
+            tmp, "phototourism_nerfacto_nerfw", finetune_num_steps=4),
+            phototourism, os.path.join(tmp, "exp", "nerfw"))
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")
@@ -976,7 +1124,7 @@ def main() -> None:
          "launches": accum_launches, "max_abs_err": accum_worst,
          "ms": acc["ms"], "plain_ms": acc["plain_ms"],
          "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
-         "library_ms": None},
+         "library_ms": acc["library_ms"]},
         {"name": "hashgrid_fwd_2d", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/hashgrid.cu",
          "replaces": "nerf_hugs_tpu/ops/hashgrid.py:448",

@@ -1,10 +1,12 @@
-"""Pixel -> ray casting on the host, in numpy.
+"""Camera poses and pixel -> ray casting on the host, in numpy.
 
 The numpy-only subset of nerf_hugs_tpu/cameras/camera_utils.py that the
-synthetic and kubric scenes and the patch sampler need (the `xnp=np` path
-there): pinhole intrinsics, lookat poses, pixel grids, perspective ray
-casting with OpenCV radial + tangential lens distortion. NDC and fisheye
-cameras wait for the COLMAP loaders (ROADMAP.md Queue 1 item 11b).
+synthetic, kubric, distractor and phototourism loaders and the patch
+sampler need (the `xnp=np` path there): pose padding, the average-pose
+recentring and the PCA alignment of a COLMAP capture, pinhole intrinsics,
+lookat poses, pixel grids, ray casting with OpenCV radial + tangential
+lens distortion, and fisheye cameras. NDC waits for the llff loader
+(ROADMAP.md Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -26,6 +28,16 @@ def normalize(x: np.ndarray) -> np.ndarray:
     return x / np.linalg.norm(x)
 
 
+def pad_poses(p: np.ndarray) -> np.ndarray:
+    """Append the homogeneous [0,0,0,1] row to [..., 3, 4] poses."""
+    bottom = np.broadcast_to([0, 0, 0, 1.0], p[..., :1, :4].shape)
+    return np.concatenate([p[..., :3, :4], bottom], axis=-2)
+
+
+def unpad_poses(p: np.ndarray) -> np.ndarray:
+    return p[..., :3, :4]
+
+
 def viewmatrix(lookdir: np.ndarray, up: np.ndarray,
                position: np.ndarray) -> np.ndarray:
     """Right-handed lookat camera-to-world [3, 4]."""
@@ -35,11 +47,65 @@ def viewmatrix(lookdir: np.ndarray, up: np.ndarray,
     return np.stack([vec0, vec1, vec2, position], axis=1)
 
 
+def average_pose(poses: np.ndarray) -> np.ndarray:
+    """Mean position/viewing-direction/up pose of a capture."""
+    return viewmatrix(poses[:, :3, 2].mean(0), poses[:, :3, 1].mean(0),
+                      poses[:, :3, 3].mean(0))
+
+
+def recenter_poses(poses: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Recenter the capture around its average pose; returns (poses, T)."""
+    transform = np.linalg.inv(pad_poses(average_pose(poses)))
+    return unpad_poses(transform @ pad_poses(poses)), transform
+
+
+def focus_point_fn(poses: np.ndarray) -> np.ndarray:
+    """Least-squares point closest to all camera optical axes."""
+    directions, origins = poses[:, :3, 2:3], poses[:, :3, 3:4]
+    m = np.eye(3) - directions * np.transpose(directions, [0, 2, 1])
+    mt_m = np.transpose(m, [0, 2, 1]) @ m
+    return np.linalg.inv(mt_m.mean(0)) @ (mt_m @ origins).mean(0)[:, 0]
+
+
+def transform_poses_pca(poses: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Rotate/scale the capture so position PCA axes align with XYZ and all
+    camera centers fit in [-1, 1]^3 (multinerf's camera_utils, which the
+    reference vendors; its outputs define the frames of released
+    checkpoints, so it is kept output-compatible)."""
+    t = poses[:, :3, 3]
+    t_mean = t.mean(axis=0)
+    centered = t - t_mean
+
+    eigval, eigvec = np.linalg.eig(centered.T @ centered)
+    order = np.argsort(eigval)[::-1]
+    rot = eigvec[:, order].T
+    if np.linalg.det(rot) < 0:
+        rot = np.diag(np.array([1, 1, -1])) @ rot
+
+    transform = np.concatenate([rot, rot @ -t_mean[:, None]], -1)
+    poses_out = unpad_poses(transform @ pad_poses(poses))
+    transform = np.concatenate([transform, np.eye(4)[3:]], axis=0)
+
+    # Keep +y of the average camera pointing up (+z world).
+    if poses_out.mean(axis=0)[2, 1] < 0:
+        poses_out = np.diag(np.array([1, -1, -1])) @ poses_out
+        transform = np.diag(np.array([1, -1, -1, 1])) @ transform
+
+    scale = 1.0 / np.max(np.abs(poses_out[:, :3, 3]))
+    poses_out[:, :3, 3] *= scale
+    transform = np.diag(np.array([scale] * 3 + [1])) @ transform
+    return poses_out, transform
+
+
+def intrinsic_matrix(fx, fy, cx, cy) -> np.ndarray:
+    """OpenCV-convention pinhole intrinsics."""
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+
+
 def get_pixtocam(focal, width, height) -> np.ndarray:
     """Inverse intrinsics of a centered pinhole camera."""
-    return np.linalg.inv(np.array([[focal, 0, width * 0.5],
-                                   [0, focal, height * 0.5],
-                                   [0, 0, 1.0]]))
+    return np.linalg.inv(intrinsic_matrix(focal, focal, width * 0.5,
+                                          height * 0.5))
 
 
 def pixel_coordinates(width: int, height: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -101,12 +167,14 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds,
     Casts through pixel centers, undistorted when `distortion_params`
     (k1..k4, p1, p2) are given, or gathered from `undistorted` (the
     undistorted_grid of the cameras' shared pixtocam and lens) when it is;
-    the +x and +y neighbour rays give the pixel footprint from which the
-    cone base radius derives."""
-    if pixtocam_ndc is not None or camtype != ProjectionType.PERSPECTIVE:
+    a fisheye camera then bends the undistorted plane point onto the
+    sphere (angle from the axis = its radius, up to pi). The +x and +y
+    neighbour rays give the pixel footprint from which the cone base radius
+    derives."""
+    if pixtocam_ndc is not None:
         raise NotImplementedError(
-            "NDC and fisheye cameras wait for the COLMAP loaders "
-            "(ROADMAP.md Queue 1 item 11b)")
+            "NDC cameras wait for the llff loader (ROADMAP.md Queue 1 item "
+            "11b)")
 
     def pix_to_dir(x, y):
         return np.stack([x + 0.5, y + 0.5, np.ones_like(x)], axis=-1)
@@ -129,6 +197,13 @@ def pixels_to_rays(pix_x_int, pix_y_int, pixtocams, camtoworlds,
             x, y = radial_and_tangential_undistort(
                 camera_dirs[..., 0], camera_dirs[..., 1], **distortion_params)
             camera_dirs = np.stack([x, y, np.ones_like(x)], -1)
+    if camtype == ProjectionType.FISHEYE:
+        theta = np.sqrt(np.sum(np.square(camera_dirs[..., :2]), axis=-1))
+        theta = np.minimum(np.pi, theta)
+        sin_ratio = np.sin(theta) / theta
+        camera_dirs = np.stack([camera_dirs[..., 0] * sin_ratio,
+                                camera_dirs[..., 1] * sin_ratio,
+                                np.cos(theta)], axis=-1)
     # OpenCV -> OpenGL axis flip, then rotate into world space.
     camera_dirs = np.matmul(camera_dirs, np.diag(np.array([1.0, -1.0, -1.0])))
     directions, dx, dy = mat_vec(camtoworlds[..., :3, :3], camera_dirs)

@@ -1,7 +1,7 @@
 """Alpha compositing of densities and colors along rays.
 
-Twin of nerf_hugs_tpu/core/render.py:85-173 (MipNeRF360/internal/
-render.py:130-244).
+Twin of nerf_hugs_tpu/core/render.py:85-188 (MipNeRF360/internal/
+render.py:130-273).
 """
 
 from __future__ import annotations
@@ -35,6 +35,44 @@ def compute_alpha_weights(density, tdist, dirs, opaque_background=False,
         [torch.zeros_like(density_delta[..., :1]),
          torch.cumsum(density_delta[..., :-1], dim=-1)], dim=-1))
     return alpha * trans, alpha, trans
+
+
+def compute_dual_alpha_weights(density_s, density_t, tdist, dirs,
+                               opaque_background=False,
+                               cumulative_from_first=False):
+    """NeRF-W static + transient compositing: one transmittance from the
+    summed density, per-component alphas; returns (weights_static,
+    weights_transient, weights_combined). The switches are those of
+    compute_alpha_weights."""
+    lo = tdist[..., :1] if cumulative_from_first else tdist[..., :-1]
+    delta = (tdist[..., 1:] - lo) * torch.linalg.norm(dirs[..., None, :],
+                                                      dim=-1)
+    dd_s, dd_t = density_s * delta, density_t * delta
+    dd_sum = (density_s + density_t) * delta
+    if opaque_background:
+        inf_tail = lambda x: torch.cat(
+            [x[..., :-1], torch.full_like(x[..., -1:], float("inf"))], dim=-1)
+        dd_s, dd_t, dd_sum = inf_tail(dd_s), inf_tail(dd_t), inf_tail(dd_sum)
+    trans = torch.exp(-torch.cat(
+        [torch.zeros_like(dd_sum[..., :1]),
+         torch.cumsum(dd_sum[..., :-1], dim=-1)], dim=-1))
+    w_s = (1.0 - torch.exp(-dd_s)) * trans
+    w_t = (1.0 - torch.exp(-dd_t)) * trans
+    w = (1.0 - torch.exp(-dd_sum)) * trans
+    return w_s, w_t, w
+
+
+def composite_combined_color(rgbs_static, rgbs_transient, bg_rgbs,
+                             weights_static, weights_transient,
+                             weights_combined):
+    """Static + transient colours over one transmittance, the background
+    behind what the combined weights leave; returns (rgb_combined,
+    rgb_static_part, rgb_transient_part)."""
+    acc = weights_combined.sum(dim=-1)
+    bg_w = torch.clamp(1 - acc[..., None], min=0)
+    rgb_s = (weights_static[..., None] * rgbs_static).sum(dim=-2)
+    rgb_t = (weights_transient[..., None] * rgbs_transient).sum(dim=-2)
+    return rgb_s + rgb_t + bg_w * bg_rgbs, rgb_s, rgb_t
 
 
 def volumetric_rendering(rgbs, weights, tdist, bg_rgbs, t_far,

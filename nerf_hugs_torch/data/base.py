@@ -5,7 +5,9 @@ thread fills a queue.Queue(3) with Batches of numpy arrays; the train loop
 moves each batch to the device. Training batches are random dilated
 patches, gathered by the native threaded sampler (the port's copy of
 native/raysampler.cc, nerf_hugs_torch/native/) when g++ can build it, else
-by numpy.
+by numpy. With sample_from_half_image (the finetune stage on the test
+split) patches come from the left half of each image only, leaving the
+right half for evaluation.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
     widths, embed_idxs ([N] arrays), camtoworlds [N, 3, 4],
     pixtocams [N, 3, 3], distortion_params and camtypes (lists)."""
 
-    def __init__(self, split: str, is_training: bool, batch_size: int,
+    def __init__(self, split: str, is_training: bool,
+                 sample_from_half_image: bool, batch_size: int,
                  patch_size: int, patch_dilation: int,
                  image_num_per_batch: int, data_dir: str, config):
         super().__init__()
@@ -57,6 +60,7 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
             np.random.SeedSequence([config.seed, 0, int(is_training)]))
         self.split = structs.DataSplit(split)
         self.is_training = is_training
+        self.sample_from_half_image = sample_from_half_image
         self.data_dir = data_dir
         self.near = config.near
         self.far = config.far
@@ -169,8 +173,10 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         parts = []
         for _ in range(self._image_num_per_batch):
             cam_idx = int(self._rng.integers(0, self._n_examples))
-            x0 = self._rng.integers(0, self.widths[cam_idx] - span,
-                                    (n_patches, 1, 1))
+            width = self.widths[cam_idx]
+            if self.sample_from_half_image:
+                width = width // 2
+            x0 = self._rng.integers(0, width - span, (n_patches, 1, 1))
             y0 = self._rng.integers(0, self.heights[cam_idx] - span,
                                     (n_patches, 1, 1))
             parts.append(self._make_ray_batch(x0 + dx * self._patch_dilation,
@@ -194,7 +200,8 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         (pix_x, pix_y, cam_idx, embed_idx, rgb, mask, near, far
          ) = self._native.sample(
             self._native_seed + self._native_calls, n_patches, p,
-            self._patch_dilation, self._image_num_per_batch)
+            self._patch_dilation, self._image_num_per_batch,
+            half_image=self.sample_from_half_image)
         pixels = structs.Pixels(
             pix_x_int=pix_x.astype(np.int64),
             pix_y_int=pix_y.astype(np.int64),
@@ -218,16 +225,25 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         return self.generate_ray_batch(cam_idx)
 
 
+def resize_bilinear(image: np.ndarray, height: int,
+                    width: int) -> np.ndarray:
+    """[h, w, c] -> [height, width, c], bilinear with half-pixel centres
+    and clamped edges and no antialiasing (OpenCV's INTER_LINEAR, which the
+    JAX loaders call). It interpolates in float64 and returns the image's
+    own dtype: torch's float32 source coordinates drift by up to 5e-5 at a
+    non-integer scale (767 -> 383 rows)."""
+    t = torch.from_numpy(np.ascontiguousarray(image, np.float64))
+    return F.interpolate(t.permute(2, 0, 1)[None], size=(height, width),
+                         mode="bilinear", align_corners=False
+                         )[0].permute(1, 2, 0).numpy().astype(image.dtype)
+
+
 def load_static_mask(path: str, height: int, width: int) -> np.ndarray:
-    """A HuGS static-mask PNG as [H, W, 1] float32 in [0, 1], resized
-    bilinearly (half-pixel centres, edge-clamped: OpenCV's INTER_LINEAR,
-    which the JAX loader calls) when its size differs from the image's."""
+    """A HuGS static-mask PNG as [H, W, 1] float32 in [0, 1], resized with
+    resize_bilinear when its size differs from the image's."""
     mask = nh_io.load_img(path) / 255.0
     if mask.ndim == 2:
         mask = mask[..., None]
     if mask.shape[:2] != (height, width):
-        t = torch.from_numpy(np.ascontiguousarray(mask, np.float32))
-        mask = F.interpolate(t.permute(2, 0, 1)[None], size=(height, width),
-                             mode="bilinear", align_corners=False
-                             )[0].permute(1, 2, 0).numpy()
+        mask = resize_bilinear(mask.astype(np.float32), height, width)
     return mask[..., :1].reshape(height, width, 1).astype(np.float32)

@@ -35,7 +35,7 @@ from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models.nerfacto import NerfactoModel
 from nerf_hugs_torch.train import checkpoints
-from nerf_hugs_torch.train.driver import load_config
+from nerf_hugs_torch.train.driver import load_config, preflight
 from nerf_hugs_torch.train.render_image import render_image
 from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
@@ -112,10 +112,7 @@ def main(argv=None):
     config = load_config(args.config, args.data_dir, args.save_dir)
     if args.eval_data:
         config.eval_data = args.eval_data
-    if config.model_type != "nerfacto":
-        raise NotImplementedError(
-            f"model_type {config.model_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1 items 13-14)")
+    preflight(config)
     pin_fp32_precision()
 
     model = NerfactoModel(config, device,

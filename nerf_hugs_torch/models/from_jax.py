@@ -12,7 +12,9 @@ NerfactoModel.state_dict() of this package:
   {..}/{mlp}/Dense_k/bias                -> {..}.{mlp}.layers.k.bias
   {..}/{mlp}/w_i [in, out]               -> {..}.{mlp}.w_i, as it is (the
                                             bias-free fused MLP keeps the
-                                            flax layout)
+                                            flax layout); {mlp} is mlp_base,
+                                            mlp_head or NeRF-W's
+                                            mlp_transient
   {appearance,transient}_embedding/embedding [num, dim]
                                          -> {..}_embedding.weight, as it is
   implicit_mask/{hashgrid,mlp}/...       -> implicit_mask.{hashgrid,mlp}...,

@@ -15,12 +15,13 @@ Module and parameter names mirror the flax tree (field/hashgrid,
 field/mlp_base/Dense_k -> field.mlp_base.layers.k, field/mlp_base/w_i ->
 field.mlp_base.w_i, proposal_i/..., appearance_embedding/embedding ->
 appearance_embedding.weight, implicit_mask/{hashgrid,mlp}), so
-models/from_jax.py maps one onto the other.
+models/from_jax.py maps one onto the other (the NeRF-W head is
+field/mlp_transient -> field.mlp_transient).
 
-Appearance and transient embeddings with their eval_embedding modes and
-HA-NeRF's implicit mask (a 2-D hash grid on the pixel coordinates) are
-ported. Not ported yet (raises NotImplementedError): the field's NeRF-W
-transient head, `transient_type: nerfw`.
+Appearance and transient embeddings with their eval_embedding modes,
+HA-NeRF's implicit mask (a 2-D hash grid on the pixel coordinates) and
+NeRF-W's transient head (transient density, colour and uncertainty beside
+the static field, composited over one transmittance) are ported.
 """
 
 from __future__ import annotations
@@ -129,6 +130,44 @@ def _grid_spec(args: Dict[str, Any]) -> HashGridSpec:
         hash_impl=args.get("hash_impl", "xor"))
 
 
+TRANSIENT_TYPES = (None, "withmask", "robustnerf", "nerfw", "hanerf")
+
+
+def check_transient_config(config) -> None:
+    """Refuse a transient_type the model and losses do not know, and the
+    two whose heads read the transient embedding without it: HA-NeRF's mask
+    and NeRF-W's transient head (JAX builds no head then, and its NeRF-W
+    loss fails on the missing uncertainty)."""
+    if config.transient_type not in TRANSIENT_TYPES:
+        raise ValueError(f"unknown transient_type {config.transient_type!r}")
+    if config.transient_type in ("hanerf", "nerfw") \
+            and not config.nerfacto.use_transient_embedding:
+        raise ValueError(f"transient_type {config.transient_type!r} needs "
+                         "use_transient_embedding: its head reads the "
+                         "transient embedding")
+
+
+def has_transient_head(config) -> bool:
+    """Whether the field carries NeRF-W's transient head."""
+    return (config.transient_type == "nerfw"
+            and config.nerfacto.use_transient_embedding)
+
+
+def module_names(config) -> List[str]:
+    """The top-level modules NerfactoModel builds for `config` (the first
+    element of its parameter names), without building it."""
+    nc = config.nerfacto
+    nets = 1 if nc.use_same_proposal_network else nc.num_proposal_iterations
+    names = ["field"] + [f"proposal_{i}" for i in range(nets)]
+    if nc.use_appearance_embedding:
+        names.append("appearance_embedding")
+    if nc.use_transient_embedding:
+        names.append("transient_embedding")
+    if config.transient_type == "hanerf":
+        names.append("implicit_mask")
+    return names
+
+
 def fused_mlp_widths(config) -> Dict[str, tuple]:
     """{module name: layer widths} of the MLPs NerfactoModel builds for
     `config` with enable_tcnn_mlp on for the field and every proposal net:
@@ -141,6 +180,10 @@ def fused_mlp_widths(config) -> Dict[str, tuple]:
                            nc.hidden_dim, 1 + nc.geo_feat_dim),
         "field.mlp_head": (16 + nc.geo_feat_dim + appearance,
                            nc.hidden_dim_color, nc.hidden_dim_color, 3)}
+    if has_transient_head(config):
+        widths["field.mlp_transient"] = (
+            nc.geo_feat_dim + nc.transient_embedding_dim,
+            nc.hidden_dim_transient, nc.hidden_dim_transient, 5)
     nets = 1 if nc.use_same_proposal_network else nc.num_proposal_iterations
     for i in range(nets):
         args = nc.proposal_net_args_list[
@@ -151,11 +194,14 @@ def fused_mlp_widths(config) -> Dict[str, tuple]:
 
 
 class NerfactoField(nn.Module):
-    """Hash grid -> density + geo_feat; SH(dir) + geo_feat -> rgb."""
+    """Hash grid -> density + geo_feat; SH(dir) + geo_feat [+ appearance]
+    -> rgb; with `transient`, NeRF-W's head on geo_feat + the transient
+    embedding -> transient density, rgb and uncertainty."""
 
     def __init__(self, nc: cfg.NerfactoConfig, bound: float,
                  contraction: bool, compute_dtype: torch.dtype,
-                 generator: torch.Generator, fused_ok: bool = False):
+                 generator: torch.Generator, fused_ok: bool = False,
+                 transient: bool = False):
         super().__init__()
         self.bound, self.contraction = bound, contraction
         self.compute_dtype = compute_dtype
@@ -172,8 +218,13 @@ class NerfactoField(nn.Module):
         self.mlp_head = _ReluMLP(16 + nc.geo_feat_dim + appearance_dim,
                                  nc.hidden_dim_color, 3, 3, compute_dtype,
                                  generator, fused=fused_ok)
+        self.mlp_transient = (
+            _ReluMLP(nc.geo_feat_dim + nc.transient_embedding_dim,
+                     nc.hidden_dim_transient, 3, 5, compute_dtype, generator,
+                     fused=fused_ok) if transient else None)
 
-    def forward(self, positions, viewdirs, embedded_appearance=None):
+    def forward(self, positions, viewdirs, embedded_appearance=None,
+                embedded_transient=None):
         grid_pos, selector = _normalize_positions(positions, self.bound,
                                                   self.contraction)
         h = self.mlp_base(self.hashgrid(grid_pos))
@@ -184,8 +235,17 @@ class NerfactoField(nn.Module):
         if embedded_appearance is not None:
             color_in.append(embedded_appearance.to(self.compute_dtype))
         raw_rgb = self.mlp_head(torch.cat(color_in, dim=-1))
-        return {"density": density[..., 0],
-                "rgb": torch.sigmoid(raw_rgb.float())}
+        outputs = {"density": density[..., 0],
+                   "rgb": torch.sigmoid(raw_rgb.float())}
+        if self.mlp_transient is not None:
+            out = self.mlp_transient(torch.cat(
+                [geo_feat, embedded_transient.to(self.compute_dtype)],
+                dim=-1)).float()
+            outputs["density_transient"] = (
+                trunc_exp(out[..., :1]) * selector[..., None])[..., 0]
+            outputs["rgb_transient"] = torch.sigmoid(out[..., 1:4])
+            outputs["uncertainty"] = F.softplus(out[..., 4:])
+        return outputs
 
 
 class HashMLPDensityField(nn.Module):
@@ -249,16 +309,8 @@ class NerfactoModel(nn.Module):
 
     def __init__(self, config, device, generator: torch.Generator):
         super().__init__()
-        if config.transient_type == "nerfw":
-            raise NotImplementedError(
-                "the NeRF-W transient head (transient_type 'nerfw') is not "
-                "ported yet (ROADMAP.md Queue 1 item 12)")
+        check_transient_config(config)
         nc = config.nerfacto
-        if config.transient_type == "hanerf" \
-                and not nc.use_transient_embedding:
-            raise ValueError("transient_type 'hanerf' needs "
-                             "use_transient_embedding: its mask reads the "
-                             "transient embedding")
         self.config = config
         contraction = config.enable_scene_contraction
         bound = float(config.bound)
@@ -266,7 +318,8 @@ class NerfactoModel(nn.Module):
         # The field follows the top-level switch; each proposal net its
         # own proposal_net_args_list entry's (JAX nerfacto.py:259, 272, 283).
         self.field = NerfactoField(nc, bound, contraction, cdt, generator,
-                                   fused_ok=nc.enable_tcnn_mlp)
+                                   fused_ok=nc.enable_tcnn_mlp,
+                                   transient=has_transient_head(config))
         self.prop_nets: List[HashMLPDensityField] = []
         if nc.use_same_proposal_network:
             if len(nc.proposal_net_args_list) != 1:
@@ -386,15 +439,17 @@ class NerfactoModel(nn.Module):
                     density = self.prop_nets[i_level](positions)
                 field_outputs = {"density": density}
             else:
-                emb_a = None
-                if self.appearance_embedding is not None:
-                    # One row per ray, the same for each of its samples.
-                    emb_a = self._get_embedding(
-                        self.appearance_embedding, rays.embed_idx,
-                        deterministic, zero_glo).expand(
-                            positions.shape[:-1] + (-1,))
+                # One embedding row per ray, the same for each of its
+                # samples.
+                per_sample = lambda embed, zero: self._get_embedding(
+                    embed, rays.embed_idx, deterministic, zero).expand(
+                        positions.shape[:-1] + (-1,))
+                emb_a = (per_sample(self.appearance_embedding, zero_glo)
+                         if self.appearance_embedding is not None else None)
+                emb_t = (per_sample(self.transient_embedding, zero_tra)
+                         if self.field.mlp_transient is not None else None)
                 vd = rays.viewdirs[..., None, :].expand(positions.shape)
-                field_outputs = self.field(positions, vd, emb_a)
+                field_outputs = self.field(positions, vd, emb_a, emb_t)
 
             weights = render.compute_alpha_weights(
                 field_outputs["density"], tdist, rays.directions,
@@ -402,8 +457,8 @@ class NerfactoModel(nn.Module):
                 cumulative_from_first=nc.legacy_cumulative_deltas)[0]
             weights = torch.nan_to_num(weights)
 
-            ray_history.append({"sdist": sdist, "weights": weights,
-                                "density": field_outputs["density"]})
+            history = {"sdist": sdist, "weights": weights,
+                       "density": field_outputs["density"]}
             if not is_prop:
                 bg_rgbs = self._background(rng, weights.shape[:-1] + (3,),
                                            weights.device)
@@ -412,7 +467,11 @@ class NerfactoModel(nn.Module):
                     compute_extras)
                 if rng is not None:
                     rendering["bg_rgb"] = bg_rgbs
+                if "density_transient" in field_outputs:
+                    self._render_transient(rendering, history, field_outputs,
+                                           tdist, rays.directions, bg_rgbs)
                 renderings.append(rendering)
+            ray_history.append(history)
         if self.implicit_mask is not None:
             emb_t = self._get_embedding(self.transient_embedding,
                                         rays.embed_idx[..., 0], deterministic,
@@ -420,6 +479,31 @@ class NerfactoModel(nn.Module):
             renderings[-1]["implicit_mask"] = self.implicit_mask(
                 rays.pix_coords, emb_t)
         return renderings, ray_history
+
+    def _render_transient(self, rendering: dict, history: dict,
+                          field_outputs: dict, tdist, directions,
+                          bg_rgbs) -> None:
+        """NeRF-W's buffers (JAX nerfacto.py:413-435): the static and
+        transient colours over their shared transmittance, and the per-ray
+        uncertainty beta = sum of the transient-only weights x u +
+        beta_min."""
+        nc = self.config.nerfacto
+        switches = dict(opaque_background=nc.opaque_background,
+                        cumulative_from_first=nc.legacy_cumulative_deltas)
+        density_t = field_outputs["density_transient"]
+        w_s, w_t, w_c = render.compute_dual_alpha_weights(
+            field_outputs["density"], density_t, tdist, directions,
+            **switches)
+        (rendering["rgb_combined"], rendering["rgb_static"],
+         rendering["rgb_transient"]) = render.composite_combined_color(
+            field_outputs["rgb"], field_outputs["rgb_transient"], bg_rgbs,
+            w_s, w_t, w_c)
+        w_tr = render.compute_alpha_weights(density_t, tdist, directions,
+                                            **switches)[0]
+        rendering["uncertainty"] = (
+            (w_tr[..., None] * field_outputs["uncertainty"]).sum(dim=-2)
+            + self.config.model.beta_min)
+        history["density_transient"] = density_t
 
     def _background(self, rng: Optional[torch.Generator], shape, device):
         color = (self.config.train_background_color if rng is not None

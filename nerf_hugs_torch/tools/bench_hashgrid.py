@@ -28,12 +28,20 @@ order given, and reports the steps/s over steps 9 to the last from the
 driver's print lines. A RUN is `base-synthetic` (the default: Dense
 kubric_nerfacto_base on the procedural scene of hashgrid_inputs.base_yaml),
 `base-kubric` (the same on the scene of hashgrid_inputs.write_kubric_scene,
-through the kubric loader), `hanerf-kubric` (hashgrid_inputs.hanerf_yaml
-on that scene) or `fused-synthetic` (base-synthetic with enable_tcnn_mlp on
-for the field and the proposal). With --profile it then runs, per distinct
-ROOT and RUN, 8 warm-up and 5 profiled train steps under torch.profiler and
-reports device ms per step of the hash-grid kernels, of the fused MLP's
-forward kernels and of all kernels.
+through the kubric loader), `hanerf-distractor` and
+`robustnerf-distractor` (distractor_nerfacto_hanerf.yml and
+distractor_nerfacto_robustnerf0.8.yml on the capture of
+hashgrid_inputs.write_colmap_scene in the distractor layout),
+`nerfw-phototourism` (phototourism_nerfacto_nerfw.yml on the capture in the
+phototourism layout, its finetune stage as long as the train stage, both
+reported) or
+`fused-synthetic` (base-synthetic with enable_tcnn_mlp on for the field
+and the proposal). With --profile it then runs, per distinct ROOT, RUN
+and stage, 8 warm-up and 5 profiled steps under torch.profiler
+(RobustNeRF's thresholds carried from step to step; the finetune stage
+from the model as initialised) and reports device ms per step of
+the hash-grid kernels, of the fused MLP's forward kernels and of all
+kernels, and the host's wall ms per profiled step.
 
 Needs a card; the builds need nvcc.
 """
@@ -176,9 +184,10 @@ def kernels_main(args) -> dict:
     return report
 
 
-def train_rate(root: str, cfg: str, data_dir: str, tmp: str, run: int,
-               first: int) -> float:
-    """Steps/s over steps `first`..last of one driver run from `root`."""
+def train_rates(root: str, cfg: str, data_dir: str, tmp: str, run: int,
+                first: int) -> dict:
+    """{stage: steps/s over steps `first`..last} of one training run from
+    `root` (the finetune stage too where the config has one)."""
     save_dir = os.path.join(tmp, "exp", f"run{run}")
     env = dict(os.environ, PYTHONPATH=root)
     subprocess.run([sys.executable, "-m", "nerf_hugs_torch.train",
@@ -186,38 +195,49 @@ def train_rate(root: str, cfg: str, data_dir: str, tmp: str, run: int,
                     save_dir, "--device", "cuda"], cwd=root, env=env,
                    check=True, stdout=subprocess.DEVNULL)
     with open(os.path.join(save_dir, "run_log.log")) as f:
-        rates = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
-            r"\[train\] (\d+)/\d+: .* (\S+) steps/s", f.read())}
+        log = f.read()
     shutil.rmtree(save_dir)       # the checkpoint and Adam state
-    steps = [s for s in sorted(rates) if s >= first]
-    return len(steps) / sum(1.0 / rates[s] for s in steps)
+    out = {}
+    for stage in ("train", "finetune"):
+        rates = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+            rf"\[{stage}\] (\d+)/\d+: .* (\S+) steps/s", log)}
+        steps = [s for s in sorted(rates) if s >= first]
+        if steps:
+            out[stage] = len(steps) / sum(1.0 / rates[s] for s in steps)
+    return out
 
 
 PROFILE_WORKER = r"""
-import json, sys, torch
+import json, sys, time, torch
 from torch.profiler import ProfilerActivity, profile
-from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.models.nerfacto import NerfactoModel
 from nerf_hugs_torch.train import driver, step as step_lib
-cfg, data_dir = sys.argv[1], sys.argv[2]
+cfg, data_dir, stage = sys.argv[1], sys.argv[2], sys.argv[5]
 warm, active = int(sys.argv[3]), int(sys.argv[4])
 config = driver.load_config(cfg, data_dir, data_dir + "/profile_ckpt")
 model = NerfactoModel(config, "cuda",
                       torch.Generator().manual_seed(config.seed))
-optimizer, scheduler = step_lib.create_optimizer(config, model)
-dataset = load_dataset("train", data_dir, config, is_training=True)
+finetune = stage == "finetune"
+optimizer, scheduler = (step_lib.create_finetune_optimizer if finetune
+                        else step_lib.create_optimizer)(config, model)
+dataset = driver.stage_dataset(stage, config)
 rng = torch.Generator(device="cuda").manual_seed(config.seed + 1)
+thresholds = [step_lib.initial_inlier_thresholds(config, "cuda")]
 def run(step):
-    frac = (step - 1) / max(config.max_steps - 1, 1)
-    step_lib.train_step(model, optimizer, scheduler, next(dataset).to("cuda"),
-                        frac, config, rng)
+    frac = 1.0 if finetune else (step - 1) / max(config.max_steps - 1, 1)
+    stats = step_lib.train_step(model, optimizer, scheduler,
+                                next(dataset).to("cuda"), frac, config, rng,
+                                thresholds[0], finetune)
+    thresholds[0] = stats.get("robust_inlier_threshold", thresholds[0])
 for step in range(1, warm + 1):
     run(step)
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.time()
     for step in range(warm + 1, warm + active + 1):
         run(step)
     torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3 / active
 ms = {}
 for e in prof.key_averages():
     if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -225,40 +245,54 @@ for e in prof.key_averages():
         if t is None:
             t = e.cuda_time_total
         ms[e.key] = [t / 1e3 / active, e.count / active]
-print("PROFILE " + json.dumps(ms))
+print("PROFILE " + json.dumps({"kernels": ms, "wall_ms": wall}))
 """
 
 
-def profile_steps(root: str, cfg: str, data_dir: str, warm: int = 8,
-                  active: int = 5) -> dict:
-    """Device ms and launches per train step, by kernel name, of `active`
-    profiled steps after `warm` steps, in a process importing `root`."""
+def profile_steps(root: str, cfg: str, data_dir: str, stage: str = "train",
+                  warm: int = 8, active: int = 5) -> dict:
+    """Device ms and launches per step of `stage` (`train` or
+    `finetune`, from the model as initialised), by kernel name, of
+    `active` profiled steps after `warm` steps, in a process importing
+    `root`."""
     env = dict(os.environ, PYTHONPATH=root)
     out = subprocess.run([sys.executable, "-c", PROFILE_WORKER, cfg, data_dir,
-                          str(warm), str(active)], cwd=root, env=env,
+                          str(warm), str(active), stage], cwd=root, env=env,
                          check=True, capture_output=True, text=True).stdout
-    ms = json.loads(out.split("PROFILE ", 1)[1])
+    report = json.loads(out.split("PROFILE ", 1)[1])
+    ms = report["kernels"]
     group = lambda key: sum(v[0] for k, v in ms.items() if key in k)
     return {"hashgrid_fwd_ms": group("hashgrid_fwd"),
             "hashgrid_bwd_ms": group("hashgrid_bwd"),
             "fused_mlp_ms": group("fused_mlp"),
             "device_ms": sum(v[0] for v in ms.values()),
+            "wall_ms": report["wall_ms"],
             "hashgrid_kernels": {k: v for k, v in ms.items()
                                  if "hashgrid" in k}}
 
 
-RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-kubric",
+RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-distractor",
+              "robustnerf-distractor", "nerfw-phototourism",
               "fused-synthetic")
+# The shipped configs of the transient runs.
+SHIPPED_RUNS = {"hanerf-distractor": "distractor_nerfacto_hanerf",
+                "robustnerf-distractor": "distractor_nerfacto_robustnerf0.8",
+                "nerfw-phototourism": "phototourism_nerfacto_nerfw"}
 
 
 def run_inputs(run: str, tmp: str, steps: int):
     """(config path, data dir) of one RUN."""
-    scene = os.path.join(tmp, "kubric")
-    if run.endswith("kubric") and not os.path.isdir(scene):
+    scene_name = run.split("-")[1]
+    scene = os.path.join(tmp, scene_name)
+    if scene_name == "kubric" and not os.path.isdir(scene):
         hashgrid_inputs.write_kubric_scene(scene)
-    if run == "hanerf-kubric":
-        return hashgrid_inputs.hanerf_yaml(tmp, steps=steps), scene
-    mlp, scene_name = run.split("-")
+    if run in SHIPPED_RUNS:
+        data_dir = hashgrid_inputs.write_colmap_scene(
+            os.path.join(tmp, f"scene_{run}"), scene_name)
+        return hashgrid_inputs.shipped_yaml(
+            tmp, SHIPPED_RUNS[run], steps=steps, finetune_num_steps=steps), \
+            data_dir
+    mlp = run.split("-")[0]
     cfg = hashgrid_inputs.base_yaml(tmp, fused=mlp == "fused", steps=steps,
                                     scene=scene_name)
     return cfg, (scene if scene_name == "kubric" else tmp)
@@ -269,26 +303,35 @@ def train_main(args) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         inputs = {run: run_inputs(run, tmp, args.steps)
                   for run in dict.fromkeys(args.runs)}
+        stages = {}
         i = 0
         for root in args.roots:
             for run in args.runs:
-                rate = train_rate(os.path.abspath(root), *inputs[run], tmp, i,
-                                  9)
+                rates = train_rates(os.path.abspath(root), *inputs[run], tmp,
+                                    i, 9)
                 i += 1
-                report["rates"].append({"root": root, "run": run,
-                                        "steps_per_s": rate})
-                print(f"train {root} {run}: {rate:.3f} steps/s over steps "
-                      f"9-{args.steps}", flush=True)
+                for stage, rate in rates.items():
+                    report["rates"].append({"root": root, "run": run,
+                                            "stage": stage,
+                                            "steps_per_s": rate})
+                    print(f"{stage} {root} {run}: {rate:.3f} steps/s over "
+                          f"steps 9-{args.steps}", flush=True)
+                stages[run] = list(rates)
         if args.profile:
             for root in dict.fromkeys(args.roots):
-                for run in dict.fromkeys(args.runs):
-                    prof = profile_steps(os.path.abspath(root), *inputs[run])
-                    report["profiles"][f"{root} {run}"] = prof
-                    print(f"profile {root} {run}: per step hashgrid_fwd "
+                for run, stage in ((r, s) for r in dict.fromkeys(args.runs)
+                                   for s in stages[r]):
+                    prof = profile_steps(os.path.abspath(root), *inputs[run],
+                                         stage)
+                    report["profiles"][f"{root} {run} {stage}"] = prof
+                    print(f"profile {root} {run} {stage}: per step "
+                          f"hashgrid_fwd "
                           f"{prof['hashgrid_fwd_ms']:.3f} ms, hashgrid_bwd "
                           f"{prof['hashgrid_bwd_ms']:.3f} ms, fused MLP "
                           f"forward {prof['fused_mlp_ms']:.3f} ms, all kernels "
-                          f"{prof['device_ms']:.3f} ms; "
+                          f"{prof['device_ms']:.3f} ms, wall "
+                          f"{prof['wall_ms']:.3f} ms (busy share "
+                          f"{prof['device_ms'] / prof['wall_ms']:.3f}); "
                           f"{prof['hashgrid_kernels']}", flush=True)
     return report
 

@@ -1,9 +1,9 @@
-"""The kernels' inputs at kubric_nerfacto_base and
-distractor_nerfacto_hanerf, for the smoke run and the benchmarks: the
-grids' specs, the main path's sample and fused-MLP shapes, a procedural
-scene in the kubric layout, the configs on it, and the positions and output
-gradients the full-width model hands its encoders in one step, captured
-with hooks.
+"""The kernels' inputs at kubric_nerfacto_base and the shipped transient
+configs, for the smoke run and the benchmarks: the grids' specs, the main
+path's sample and fused-MLP shapes, procedural scenes in the kubric,
+distractor and phototourism layouts, the shipped configs on them, and the
+positions and output gradients the full-width model hands its encoders in
+one step, captured with hooks.
 """
 
 from __future__ import annotations
@@ -34,19 +34,34 @@ FUSED_SHAPES = (("proposal mlp_base", 256, (14, 64, 1)),
                 ("field mlp_head", 128, (80, 256, 256, 3)))
 # The HA-NeRF implicit mask's 2-D grid sees one position per ray.
 MASK_N = BATCH
-# configs/nerfacto/{kubric_nerfacto_base,distractor_nerfacto_hanerf}.yml of
-# the checkout holding the package.
+# configs/nerfacto/ of the checkout holding the package.
 _CONFIGS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "configs", "nerfacto")
 BASE_CONFIG = os.path.join(_CONFIGS, "kubric_nerfacto_base.yml")
-HANERF_CONFIG = os.path.join(_CONFIGS, "distractor_nerfacto_hanerf.yml")
 # The written kubric scene: its image directories are rgb/{FACTOR}x/.
 SCENE_FACTOR = 2
 # Its lens: small radial and tangential distortion, one camera for all
 # frames.
 SCENE_DISTORTION = {"radial_distortion": [-0.02, 0.004, 0.0],
                     "tangential_distortion": [0.001, -0.0005]}
+# The written COLMAP scenes, per layout: the downsample factor of the
+# shipped configs (distractor_* 8: images in 0/images_8/ with the COLMAP
+# intrinsics at 8x; phototourism_* 2: the loader halves 512x512 images),
+# the COLMAP camera model, the world scale (the distractor loader
+# normalises the capture into the unit cube; the phototourism loader
+# scales by 2 / 24, brandenburg_gate's published radius, so the ring of
+# cameras lands at radius 1 of the bound-2 box) and the image size on
+# disk.
+COLMAP_LAYOUTS = {
+    "distractor": {"factor": 8, "model": "OPENCV", "world_scale": 0.5,
+                   "disk_size": 256},
+    "phototourism": {"factor": 2, "model": "PINHOLE", "world_scale": 4.8,
+                     "disk_size": 512},
+}
+PHOTOTOURISM_SCENE = "brandenburg_gate"
+# The OPENCV lens of the distractor layout: k1, k2, p1, p2.
+COLMAP_DISTORTION = (-0.02, 0.004, 0.001, -0.0005)
 
 
 def fused_overlay(model: dict) -> dict:
@@ -92,22 +107,21 @@ def base_yaml(tmp: str, fused: bool, steps: int = 8,
     return cfg_path
 
 
-def hanerf_yaml(tmp: str, steps: int = 8) -> str:
-    """HANERF_CONFIG, model section unchanged, on a scene of
-    write_kubric_scene: the kubric loader at the scene's downsample factor,
-    exiting after `steps` steps; returns the path of the yaml written into
-    `tmp`. (The config's near: null, far: 1000 and rescale_scene are not
-    read on this path: the kubric loader takes near and far from
-    scene_gt.json.)"""
+def shipped_yaml(tmp: str, name: str, steps: int = 8, **base) -> str:
+    """configs/nerfacto/{name}.yml, model section unchanged, exiting after
+    `steps` train steps, with the base-section keys `base` (for example
+    finetune_num_steps) on top; returns the path of the yaml written into
+    `tmp`. Its own loader reads a scene of write_colmap_scene in its
+    layout."""
     import yaml
-    with open(HANERF_CONFIG) as f:
+    with open(os.path.join(_CONFIGS, f"{name}.yml")) as f:
         raw = yaml.safe_load(f)
-    raw["base"].update({"dataset_type": "kubric",
-                        "downsample_factor": SCENE_FACTOR, **_cadence(steps)})
-    cfg_path = os.path.join(tmp, "distractor_nerfacto_hanerf_kubric.yml")
+    raw["base"].update({**_cadence(steps), **base})
+    cfg_path = os.path.join(tmp, f"{name}.yml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(raw, f)
     return cfg_path
+
 
 
 def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
@@ -186,6 +200,147 @@ def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
             Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
                 os.path.join(image_dir, f"{name}.png"))
     return root
+
+
+def _sphere_points(rng, radius: float, n: int):
+    """n points on the sphere of the procedural world, uniform over its
+    surface, with their colours: the SfM points of a generated capture."""
+    import numpy as np
+
+    from nerf_hugs_torch.data.synthetic import _sphere_world_color
+    normal = rng.randn(n, 3)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    points = radius * normal
+    # The colour seen from outside along the normal.
+    color = _sphere_world_color(points + normal, -normal, radius=radius)
+    return points, np.round(color * 255).astype(np.uint8)
+
+
+def write_colmap_scene(root: str, layout: str, num_train: int = 32,
+                       num_test: int = 4, size: int = None,
+                       seed: int = 0) -> str:
+    """The procedural sphere world of data/synthetic.py as a COLMAP
+    capture in the `distractor` or `phototourism` layout under `root`
+    (COLMAP_LAYOUTS); returns the directory to hand the loader as
+    --data_dir.
+
+    Cameras at height 1.2 and radius 2.5 times the layout's world scale
+    look at the sphere (radius 0.5 times it): a full ring for `distractor`,
+    a 120-degree arc in front of it for `phototourism` (a photo collection
+    of one facade; a full ring would leave recenter_poses' average pose
+    without a viewing direction). Test views sit between the train views.
+    The model is written with the port's copy of colmap.py as binary
+    cameras/images/points3D, and points3D holds 4096 points on the
+    sphere's surface, so the loaders' near/far percentiles come from real
+    depths. Every image is rendered through the loader's own reading of
+    its camera, and each train frame gets an opaque random square marked 0
+    in its static mask. `size` overrides the layout's image size on disk.
+      distractor:   {root}/0/sparse/0, 0/images_8/ at 256x256 (one OPENCV
+                    camera of 2048x2048 with COLMAP_DISTORTION; the loader
+                    scales its intrinsics by 8), 0/data_split.json and
+                    0/static_masks/.
+      phototourism: {root}/brandenburg_gate/ with dense/sparse/,
+                    dense/images/ at 512x512 (one PINHOLE camera per image,
+                    focal lengths spread by 2%: per-image intrinsics),
+                    dense/static_masks/ and a .tsv split; the loader halves
+                    the images (downsample_factor 2)."""
+    import numpy as np
+    from PIL import Image
+
+    from nerf_hugs_torch.cameras import camera_utils, colmap
+    from nerf_hugs_torch.data.synthetic import _sphere_world_color
+    spec = COLMAP_LAYOUTS[layout]
+    rng = np.random.RandomState(seed)
+    scale, size = spec["world_scale"], size or spec["disk_size"]
+    if layout == "distractor":
+        data_dir = root
+        model_dir = os.path.join(root, "0", "sparse", "0")
+        image_dir = os.path.join(root, "0", f"images_{spec['factor']}")
+        mask_dir = os.path.join(root, "0", "static_masks")
+        full = size * spec["factor"]    # the COLMAP camera's own size
+        arc = 2 * np.pi
+    else:
+        data_dir = os.path.join(root, PHOTOTOURISM_SCENE)
+        model_dir = os.path.join(data_dir, "dense", "sparse")
+        image_dir = os.path.join(data_dir, "dense", "images")
+        mask_dir = os.path.join(data_dir, "dense", "static_masks")
+        full = size
+        arc = 2 * np.pi / 3
+    for d in (model_dir, image_dir, mask_dir):
+        os.makedirs(d, exist_ok=True)
+
+    names = ([f"{i:05d}.png" for i in range(num_train)]
+             + [f"{10000 + i:05d}.png" for i in range(num_test)])
+    cameras, images = {}, {}
+    for i, name in enumerate(names):
+        test = i >= num_train
+        k, n = (i - num_train, num_test) if test else (i, num_train)
+        theta = arc * ((k + 0.5 * test) / n - 0.5)
+        z_jitter = 0.0 if test else 0.1 * rng.randn()
+        position = scale * np.array([2.5 * np.cos(theta), 2.5 * np.sin(theta),
+                                     1.2 + z_jitter])
+        c2w = camera_utils.viewmatrix(camera_utils.normalize(position),
+                                      np.array([0.0, 0, 1]), position)
+        # COLMAP stores the world-to-camera pose of an OpenCV camera
+        # (right, down, forward).
+        w2c = np.linalg.inv(camera_utils.pad_poses(
+            c2w @ np.diag([1.0, -1.0, -1.0, 1.0])))
+        if layout == "distractor":
+            cam_id, focal = 1, 0.9 * full
+            params = [focal, focal, full / 2, full / 2, *COLMAP_DISTORTION]
+            distortion = dict(zip(("k1", "k2", "p1", "p2"),
+                                  COLMAP_DISTORTION), k3=0.0)
+        else:
+            cam_id = i + 1
+            focal = 0.9 * full * (1 + 0.02 * rng.uniform(-1, 1))
+            params = [focal, focal, full / 2, full / 2]
+            distortion = None
+        cameras[cam_id] = colmap.Camera(cam_id, spec["model"], full, full,
+                                        np.array(params))
+        images[i + 1] = colmap.Image(
+            i + 1, colmap.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], cam_id, name,
+            np.zeros((0, 2)), np.zeros(0, np.int64))
+        # Render at the size on disk through the inverse intrinsics at that
+        # scale, the lens and the NeRF-frame pose.
+        pixtocam = np.linalg.inv(camera_utils.intrinsic_matrix(
+            focal, focal, full / 2, full / 2)) @ np.diag(
+                [full / size, full / size, 1.0])
+        xg, yg = camera_utils.pixel_coordinates(size, size)
+        origins, dirs, _, _ = camera_utils.pixels_to_rays(
+            xg, yg, pixtocam, c2w, distortion)
+        image = _sphere_world_color(origins, dirs, radius=0.5 * scale)
+        if not test:
+            sz = size // 4
+            y0, x0 = rng.randint(0, size - sz, 2)
+            image[y0:y0 + sz, x0:x0 + sz] = rng.rand(3)
+            mask = np.full((size, size), 255, np.uint8)
+            mask[y0:y0 + sz, x0:x0 + sz] = 0
+            Image.fromarray(mask).save(
+                os.path.join(mask_dir, name.split(".")[0] + ".png"))
+        Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
+            os.path.join(image_dir, name))
+
+    xyz, rgb = _sphere_points(rng, 0.5 * scale, 4096)
+    track = np.arange(1, len(names) + 1)
+    points = {j + 1: colmap.Point3D(j + 1, xyz[j], rgb[j], 0.5, track,
+                                    np.zeros(len(names), np.int64))
+              for j in range(len(xyz))}
+    colmap.write_cameras_binary(cameras, os.path.join(model_dir,
+                                                      "cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(model_dir, "images.bin"))
+    colmap.write_points3D_binary(points, os.path.join(model_dir,
+                                                      "points3D.bin"))
+    if layout == "distractor":
+        _write_json(os.path.join(root, "0", "data_split.json"),
+                    {"train": names[:num_train], "test": names[num_train:]})
+    else:
+        with open(os.path.join(data_dir, f"{PHOTOTOURISM_SCENE}.tsv"),
+                  "w") as f:
+            f.write("filename\tid\tsplit\tdataset\n")
+            for i, name in enumerate(names):
+                split = "test" if i >= num_train else "train"
+                f.write(f"{name}\t{i}\t{split}\t{PHOTOTOURISM_SCENE}\n")
+    return data_dir
 
 
 def _write_json(path: str, obj) -> None:

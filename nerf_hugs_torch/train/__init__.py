@@ -1,6 +1,6 @@
-"""Training: Adam and the train step (step.py), checkpoints, chunked
-rendering, and the yaml driver (driver.py), run as
-`python -m nerf_hugs_torch.train`."""
+"""Training: Adam, the finetune partition and the train step (step.py),
+checkpoints, chunked rendering, and the two-stage yaml driver (driver.py),
+run as `python -m nerf_hugs_torch.train`."""
 
 
 def main(argv=None):

@@ -1,16 +1,20 @@
-"""Adam, gradient clipping and the train step.
+"""Adam, gradient clipping, the finetune partition and the train step.
 
 Twin of nerf_hugs_tpu/train/step.py:66-252 for one device: the loss
-composition of the JAX `loss_fn` (base, withmask and hanerf), per-top-level-module clipping,
-nan_to_num on the gradients and optax's Adam on the warmup-decay schedule.
-The finetune stage waits (ROADMAP.md Queue 1 item 8).
+composition of the JAX `loss_fn` (base, withmask, robustnerf, nerfw and
+hanerf; a data-only loss in the finetune stage), per-top-level-module
+clipping, nan_to_num on the gradients and optax's Adam on the
+warmup-decay schedule. The finetune stage trains the config's
+finetune_params groups only: the frozen parameters take no gradient
+(requires_grad off), and Adam holds the trainable ones alone, which moves
+the same values as optax.multi_transform with set_to_zero on the rest.
 """
 
 from __future__ import annotations
 
 import functools
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -42,6 +46,63 @@ def create_optimizer(config, model: torch.nn.Module):
         lr_delay_mult=config.lr_delay_mult)
     return create_adam(model.parameters(), lr_fn, config.adam_beta1,
                        config.adam_beta2, config.adam_eps)
+
+
+FINETUNE_GROUPS = ("field", "proposal", "appearance_embedding",
+                   "transient_embedding", "implicit_mask")
+
+
+def finetune_partitions(config, names: Iterable[str]) -> Dict[str, str]:
+    """{parameter name: 'trainable' | 'frozen'} for the finetune stage.
+    The trainable set is config.finetune_params, a list of the model's
+    param groups (FINETUNE_GROUPS): a group takes the parameters of the
+    top-level module of its name, 'proposal' those of proposal_0..k-1. A
+    group that matches no parameter raises, as the JAX package does
+    (nerf_hugs_tpu/train/step.py:97-154)."""
+    groups = tuple(config.finetune_params or ())
+    matched = set()
+    labels = {}
+    for name in names:
+        top = name.split(".")[0]
+        hit = [g for g in groups
+               if top == g or (g == "proposal" and top.startswith("proposal"))]
+        matched.update(hit)
+        labels[name] = "trainable" if hit else "frozen"
+    missing = [g for g in groups if g not in matched]
+    if missing:
+        raise ValueError(
+            f"finetune_params groups {missing} match no parameters of "
+            f"model_type={config.model_type!r}; valid groups are "
+            + " / ".join(FINETUNE_GROUPS) + " (reference get_params_dict "
+            "keys)")
+    return labels
+
+
+def create_finetune_optimizer(config, model: torch.nn.Module):
+    """Freeze every parameter outside the finetune groups (requires_grad
+    off) and return (optimizer, scheduler): Adam over the trainable ones
+    with the finetune_* betas, eps and schedule, its count from 0."""
+    labels = finetune_partitions(config,
+                                 [n for n, _ in model.named_parameters()])
+    trainable: List[torch.nn.Parameter] = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] == "trainable")
+        if p.requires_grad:
+            trainable.append(p)
+    lr_fn = functools.partial(
+        nh_math.learning_rate_decay, lr_init=config.finetune_lr_init,
+        lr_final=config.finetune_lr_final,
+        max_steps=config.finetune_max_steps,
+        lr_delay_steps=config.finetune_lr_delay_steps,
+        lr_delay_mult=config.finetune_lr_delay_mult)
+    return create_adam(trainable, lr_fn, config.finetune_adam_beta1,
+                       config.finetune_adam_beta2, config.finetune_adam_eps)
+
+
+def initial_inlier_thresholds(config, device) -> torch.Tensor:
+    """RobustNeRF's carried thresholds before the first step: ones, one
+    per ray level (config.num_ray_levels)."""
+    return torch.ones(config.num_ray_levels, device=device)
 
 
 def apply_gradients(optimizer, scheduler,
@@ -81,49 +142,71 @@ def clip_gradients(grads: Dict[str, Optional[torch.Tensor]], config):
 
 
 def compute_loss(model, batch, train_frac: float, config,
-                 rng: Optional[torch.Generator]):
-    """Forward + loss composition of the JAX loss_fn (step.py:189-233).
-    Returns (loss, stats) with stats['losses'] and stats['mses']."""
+                 rng: Optional[torch.Generator],
+                 inlier_thresholds: Optional[torch.Tensor] = None,
+                 is_finetune: bool = False):
+    """Forward + loss composition of the JAX loss_fn (step.py:189-233):
+    the transient type's data loss (the plain data loss in the finetune
+    stage), then, outside the finetune stage, the interlevel and
+    distortion terms. inlier_thresholds: RobustNeRF's carried state
+    (initial_inlier_thresholds when None). Returns (loss, stats) with
+    stats['losses'], stats['mses'] and the loss's own stats."""
     rays = batch.rays
     renderings, ray_history = model(
         rays, train_frac, compute_extras=False,
         rng=rng if config.randomized else None, zero_glo=False,
         zero_tra=False)
-    if config.transient_type is None:
+    transient_type = None if is_finetune else config.transient_type
+    if transient_type in (None, "withmask"):
         losses, stats = zoo.compute_data_loss(batch, rays, renderings,
-                                              config, False)
-    elif config.transient_type == "withmask":
-        losses, stats = zoo.compute_data_loss(batch, rays, renderings,
-                                              config, True)
-    elif config.transient_type == "hanerf":
+                                              config,
+                                              transient_type == "withmask")
+    elif transient_type == "robustnerf":
+        if inlier_thresholds is None:
+            inlier_thresholds = initial_inlier_thresholds(
+                config, renderings[-1]["rgb"].device)
+        losses, stats = zoo.compute_robustnerf_loss(
+            batch, renderings, inlier_thresholds, config)
+    elif transient_type == "nerfw":
+        losses, stats = zoo.compute_nerfw_loss(batch, renderings,
+                                               ray_history, config)
+    elif transient_type == "hanerf":
         losses, stats = zoo.compute_hanerf_loss(batch, renderings,
                                                 train_frac, config)
     else:
-        raise NotImplementedError(
-            f"transient_type {config.transient_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
-    if config.interlevel_loss_mult > 0:
-        losses["interlevel"] = zoo.interlevel_loss(ray_history, config)
-    if config.distortion_loss_mult > 0:
-        losses["distortion"] = zoo.distortion_loss(ray_history, config)
+        raise ValueError(f"unknown transient_type {transient_type!r}")
+    if not is_finetune:
+        if config.interlevel_loss_mult > 0:
+            losses["interlevel"] = zoo.interlevel_loss(ray_history, config)
+        if config.distortion_loss_mult > 0:
+            losses["distortion"] = zoo.distortion_loss(ray_history, config)
     loss = sum(losses.values())
     stats["losses"] = losses
     return loss, stats
 
 
 def train_step(model, optimizer, scheduler, batch, train_frac: float,
-               config, rng: Optional[torch.Generator]) -> dict:
-    """One optimization step; returns detached stats (loss, losses, mses,
-    psnrs, psnr) as device tensors, without synchronising."""
+               config, rng: Optional[torch.Generator],
+               inlier_thresholds: Optional[torch.Tensor] = None,
+               is_finetune: bool = False) -> dict:
+    """One optimization step over the parameters that take a gradient
+    (all of them, or the finetune groups); returns detached stats (loss,
+    losses, mses, psnrs, psnr, and RobustNeRF's robust_* with the next
+    step's robust_inlier_threshold) as device tensors, without
+    synchronising."""
     for p in model.parameters():
         p.grad = None
-    loss, stats = compute_loss(model, batch, train_frac, config, rng)
+    loss, stats = compute_loss(model, batch, train_frac, config, rng,
+                               inlier_thresholds, is_finetune)
     loss.backward()
-    params = dict(model.named_parameters())
+    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
     grads = clip_gradients({k: p.grad for k, p in params.items()}, config)
     apply_gradients(optimizer, scheduler, params, grads)
     mses = stats["mses"].detach()
     psnrs = mse_to_psnr(mses)
-    return {"loss": loss.detach(), "mses": mses, "psnrs": psnrs,
-            "psnr": psnrs[-1],
-            "losses": {k: v.detach() for k, v in stats["losses"].items()}}
+    out = {k: v.detach() for k, v in stats.items() if k.startswith("robust_")}
+    out.update({"loss": loss.detach(), "mses": mses, "psnrs": psnrs,
+                "psnr": psnrs[-1],
+                "losses": {k: v.detach()
+                           for k, v in stats["losses"].items()}})
+    return out

@@ -11,16 +11,20 @@ import pytest
 from nerf_hugs_torch.configs import config as tconfig
 from nerf_hugs_torch.configs import yaml_loader as tyaml
 from nerf_hugs_torch.data import native_sampler as tsampler
+from nerf_hugs_torch.models.nerfacto import fused_mlp_widths
+from nerf_hugs_torch.train import driver
 from nerf_hugs_tpu.configs import config as jconfig
 from nerf_hugs_tpu.configs import yaml_loader as jyaml
 from nerf_hugs_tpu.data import native_sampler as jsampler
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 YAMLS = sorted((REPO / "configs" / "nerfacto").glob("*.yml"))
+NERFACTO_YAMLS = [p for p in YAMLS if "nerfacto" in p.stem]
 
 
 def test_every_nerfacto_yaml_is_covered():
     assert len(YAMLS) == 30
+    assert len(NERFACTO_YAMLS) == 21
 
 
 @pytest.mark.parametrize("path", YAMLS, ids=lambda p: p.stem)
@@ -29,6 +33,23 @@ def test_yaml_loader_matches_jax(path):
     assert isinstance(got, tconfig.Config)
     assert dataclasses.asdict(got) == dataclasses.asdict(
         jyaml.load_yaml_config(str(path)))
+
+
+@pytest.mark.parametrize("path", NERFACTO_YAMLS, ids=lambda p: p.stem)
+def test_train_preflight_accepts_every_shipped_nerfacto_config(path):
+    """The trainer's checks before it builds anything (model_type,
+    transient_type with its embeddings, the data loader, the finetune
+    groups) pass on every shipped nerfacto config but one: NeRF-W without
+    the transient embedding, which JAX cannot train either."""
+    config = driver.load_config(str(path), "data", "ckpt")
+    if path.stem == "distractor_nerfacto_nerfw":
+        with pytest.raises(ValueError, match="use_transient_embedding"):
+            driver.preflight(config)
+        return
+    driver.preflight(config)
+    widths = fused_mlp_widths(config)
+    assert ("field.mlp_transient" in widths) == (
+        config.transient_type == "nerfw")
 
 
 def test_config_defaults_and_derived_values_match_jax():

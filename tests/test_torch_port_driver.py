@@ -113,7 +113,7 @@ def test_synthetic_data_matches_jax():
 
 
 def test_unported_loaders_and_options_raise():
-    for loader in ("distractor", "llff", "phototourism", "blender"):
+    for loader in ("llff", "blender"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             load_dataset("train", "", tu.tiny_config(
                 base={"dataset_type": loader}), is_training=True)

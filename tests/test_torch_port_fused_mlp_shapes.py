@@ -31,9 +31,12 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted((REPO / "configs" / "nerfacto").glob("*nerfacto*.yml"))
 # The bf16 widths of configs/nerfacto/*nerfacto*.yml (fused_mlp_widths of
 # each, all with enable_amp: true): proposal, field base and field head,
-# the head's input 16 + geo_feat_dim + the appearance embedding's width.
+# the head's input 16 + geo_feat_dim + the appearance embedding's width,
+# and NeRF-W's transient head (geo_feat_dim + the transient embedding's
+# width -> hidden_dim_transient x 2 -> 5).
 SHIPPED = [(10, 64, 1), (14, 64, 1), (24, 256, 65), (32, 256, 65),
-           (80, 256, 256, 3), (84, 256, 256, 3), (128, 256, 256, 3)]
+           (80, 64, 64, 5), (80, 256, 256, 3), (84, 256, 256, 3),
+           (128, 256, 256, 3)]
 KIB_227 = 227 * 1024
 
 

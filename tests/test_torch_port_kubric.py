@@ -128,8 +128,7 @@ def test_undistort_and_distorted_rays_match_jax():
     plain = tcam.pixels_to_rays(xg, yg, pixtocam, c2w)
     assert not np.allclose(plain[1], got[1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcam.pixels_to_rays(xg, yg, pixtocam, c2w,
-                            camtype=tcam.ProjectionType.FISHEYE)
+        tcam.pixels_to_rays(xg, yg, pixtocam, c2w, pixtocam_ndc=pixtocam)
 
 
 def test_undistorted_grid_matches_the_per_ray_solve():

@@ -229,19 +229,24 @@ def test_amp_forward_tracks_jax_bf16(jax_model):
 
 
 def test_unported_heads_raise():
-    # The NeRF-W transient head waits, with or without the embeddings it
-    # reads; the embeddings and HA-NeRF's mask are ported.
-    for model in ({"transient_type": "nerfw"},
-                  {"transient_type": "nerfw", "use_transient_embedding": True,
-                   "use_appearance_embedding": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NerfactoModel(tu.tiny_config(model=model), "cpu",
-                          torch.Generator())
-    NerfactoModel(tu.tiny_config(model={"use_appearance_embedding": True}),
-                  "cpu", torch.Generator())
+    # Every head of the zoo is ported. What is still refused: NeRF-W
+    # without the transient embedding its head reads (JAX builds no head
+    # and then fails in the loss), and an unknown transient_type.
+    with pytest.raises(ValueError, match="use_transient_embedding"):
+        NerfactoModel(tu.tiny_config(model={"transient_type": "nerfw"}),
+                      "cpu", torch.Generator())
+    model = NerfactoModel(tu.tiny_config(model={
+        "transient_type": "nerfw", "use_transient_embedding": True,
+        "use_appearance_embedding": True}), "cpu", torch.Generator())
+    assert model.field.mlp_transient is not None
     config = tu.tiny_config(model={"transient_type": "robustnerf"})
+    config.robustnerf_inner_patch_size = 2   # within the 4x4 patch
     model = NerfactoModel(config, "cpu", torch.Generator())
     batch = tstructs.Batch(rays=tstructs.Rays(**tu.ray_arrays(16, 0)),
                            rgb=np.zeros((16, 3), np.float32)).to("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.compute_loss(model, batch, 0.5, config, None)
+    loss, stats = tstep.compute_loss(model, batch, 0.5, config, None)
+    assert torch.isfinite(loss)
+    assert stats["robust_inlier_threshold"].shape == (1,)
+    config.transient_type = "other"
+    with pytest.raises(ValueError, match="unknown transient_type"):
+        NerfactoModel(config, "cpu", torch.Generator())
