@@ -32,7 +32,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      then bf16 at every width of configs/nerfacto/*nerfacto*.yml and at
      edge widths (1, 256, odd, 8 layers) at small n, below one tile and
      ragged from row 1, each call checked to take the kernel its widths
-     route to (8 layers of 256: the streamed kernel, the rest resident);
+     route to (8 layers of 256: the streamed kernel, the rest resident),
+     and fp32 at its edges (the same, NeRF-W's transient head and the
+     widest head; every fp32 call takes the fp32 kernel);
   5. a small model on the card (kernels) against the same weights on the
      CPU (plain versions), loss and every parameter gradient, with the
      Dense MLPs, with enable_tcnn_mlp on for the field and the proposal,
@@ -66,7 +68,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      256x256, 4 render chunks each) with the fused-MLP and hash-grid launch
      counters read around the eval (the resident bf16 kernel must launch,
      the streamed one never), then the scoring CLI over the test_preds/
-     PNGs the eval wrote;
+     PNGs the eval wrote; then (8b) the same config with enable_amp off,
+     so the fused MLPs run in fp32: 4 train steps and an eval of 1 image,
+     the fp32 kernel launched in both and neither bf16 kernel;
   9. the planar-accumulate kernel against its plain version on the gathers
      of n = 2^21 samples from dense levels of 81^3 and 127^3 rows, and on a
      ragged span of them (within 1e-5 absolute), with timings beside one
@@ -134,10 +138,19 @@ FUSED_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 FUSED_EDGES = (((1, 256), 129, 0), ((256, 1), 65, 1),
                ((17, 48, 24, 5), 1000, 1), ((32,) * 9, 513, 0),
                ((256,) * 9, 4097, 1))
+# The fp32 kernel's edges beyond the main shapes (the same triples): n
+# below one tile, ragged from row 1, widths 1 and 256, odd widths, 8
+# layers, 8 layers of 256 (every layer streamed), NeRF-W's transient head
+# (two blocks an SM) and the widest head (two layers streamed).
+FUSED_EDGES_F32 = (((14, 64, 1), 37, 0), ((80, 256, 256, 3), 4097, 1),
+                   ((32, 256, 65), 100, 1)) + FUSED_EDGES + (
+    ((80, 64, 64, 5), 3000, 1), ((128, 256, 256, 3), 300, 1))
 # Ragged: no multiple of a warp or a block. Each adversarial row gradient
 # sums up to n payloads, and the plain version's sequential atomics round
 # about sqrt(n) times; at 2^13 that stays a few 1e-6 of the largest entry.
 ADVERSARIAL_N = (1 << 13) + 37
+# Train steps of the fp32 fused path (phase 8b); its eval renders 1 image.
+F32_STEPS = 4
 ACCUM_N = 1 << 21          # samples of the planar-accumulate microbenchmark
 ACCUM_SIZES = (81, 127)    # its dense levels of N^3 rows checked in phase 9
 # NVIDIA H100 SXM data sheet: memory rate, dense peaks by operand type
@@ -228,28 +241,14 @@ def compare(torch, hashgrid, hashgrid_bwd, spec, table, pos, g, label):
 
 
 def library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g):
-    """The yardsticks of the hash-grid kernels: one PyTorch call for each
-    kernel's function, fed the corner rows and weights computed beforehand
-    (outside the timing): `embedding_bag` with per-sample weights for the
+    """The yardsticks of the hash-grid kernels
+    (tools/bench_hashgrid.py::yardsticks: `embedding_bag` for the
     forward's weighted gather, `index_add_` for the table gradient's
-    scatter. Each is checked against its kernel; returns their times and
-    the number of distinct table rows the samples touch."""
-    pos = p.reshape(-1, spec.num_dims)
-    rows, weights = [], []
-    for lvl in range(spec.num_levels):
-        r, w = hashgrid.corner_rows_level(spec, pos, lvl)
-        rows.append(r.t() + int(spec.level_offsets[lvl]))
-        weights.append(w.t())
-    corners = 2 ** spec.num_dims
-    rows = torch.stack(rows, 1).reshape(-1, corners)        # [n * L, 8]
-    weights = torch.stack(weights, 1).reshape(-1, corners)
-    tab = table.view(-1, spec.features_per_level)
-    keys = rows.reshape(-1)
-    vals = (weights[..., None] * g.reshape(-1, 1, spec.features_per_level)
-            ).reshape(-1, spec.features_per_level)
-    fwd = lambda: torch.nn.functional.embedding_bag(
-        rows, tab, per_sample_weights=weights, mode="sum")
-    bwd = lambda: torch.zeros_like(tab).index_add_(0, keys, vals)
+    scatter, fed the corner rows and weights computed beforehand), each
+    checked against its kernel; returns their times and the number of
+    distinct table rows the samples touch."""
+    from nerf_hugs_torch.tools.bench_hashgrid import yardsticks
+    fwd, bwd, rows_touched = yardsticks(spec, table, p, g)
     out_k = hashgrid.hashgrid_fwd(table, p, spec)
     gt_k = hashgrid_bwd.hashgrid_table_grad(p, g, spec)
     fwd_rel = float((fwd().view(out_k.shape) - out_k).abs().max()
@@ -259,7 +258,7 @@ def library_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g):
           f"the library yardsticks disagree with the kernels: {fwd_rel}, "
           f"{bwd_rel}")
     return {"fwd_library": median_ms(fwd), "bwd_library": median_ms(bwd),
-            "rows_touched": int(torch.unique(keys).numel())}
+            "rows_touched": rows_touched}
 
 
 def time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g, label):
@@ -281,22 +280,13 @@ def time_hashgrid(torch, hashgrid, hashgrid_bwd, spec, table, p, g, label):
         "hashgrid_fwd_kernel")
     t["bwd_device"] = device_ms(
         torch, lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec),
-        "hashgrid_bwd_kernel")
+        "hashgrid_bwd")
     shown = lambda ms: "not measured" if ms is None else f"{ms:.4f} ms"
-    # Each kernel reads the positions and the [n, L*F] array (output
-    # gradient) or writes it (features) once. The forward reads the table
-    # rows these samples touch; the table gradient writes the whole dense
-    # gradient. Per sample and level the fp32 work is (d - 1) products for
-    # each of the 2^d corner weights and 4 operations per corner of the
-    # weighted sums (48 at d = 3, 20 at d = 2).
+    from nerf_hugs_torch.tools.bench_hashgrid import bounds
     n = p.numel() // spec.num_dims
-    corners = 2 ** spec.num_dims
-    flops = (spec.num_dims - 1 + 4) * corners * n * spec.num_levels
-    row_bytes = spec.features_per_level * table.element_size()
-    fwd_bytes = nbytes(p, g) + t["rows_touched"] * row_bytes
-    bwd_bytes = nbytes(p, g, table)
-    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(fwd_bytes, flops)
-    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(bwd_bytes, flops)
+    (t["fwd_bound_ms"], t["fwd_bound_by"], fwd_bytes), (
+        t["bwd_bound_ms"], t["bwd_bound_by"], bwd_bytes) = bounds(
+            spec, table, p, g, t["rows_touched"])
     print(f"time  {label}, {n} samples x {spec.num_levels} levels: fwd "
           f"{t['fwd']:.3f} ms (plain {t['fwd_plain']:.3f}, embedding_bag "
           f"{t['fwd_library']:.3f}; bound {t['fwd_bound_ms']:.4f} ms, "
@@ -396,31 +386,18 @@ def kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
     return worst, timings
 
 
-def pixel_centres(torch, dev, gen, n: int, size: int = 256,
-                  patch: int = 16):
-    """[n, 2] pix_coords of n // patch^2 random patches of patch x patch
-    neighbouring pixels in size x size images, as the patch sampler hands
-    them to the implicit mask."""
-    d = torch.arange(patch, device=dev)
-    offs = torch.stack(torch.meshgrid(d, d, indexing="xy"), -1).reshape(
-        -1, 2)
-    corner = torch.randint(0, size - patch + 1, (n // patch ** 2, 1, 2),
-                           generator=gen, device=dev)
-    return ((corner + offs).reshape(-1, 2).float() + 0.5) / size
-
-
 def mask_kernel_phase(torch, hashgrid, hashgrid_bwd, dev):
     """Phase 3b: the d = 2 kernels against their plain versions at the
     implicit mask's spec on pixel-centre, uniform, edge and adversarial
     sets; returns the worst errors and the timings at n = 16384 (pixel
     centres, the main path's shape) and 2^20 (uniform)."""
     from nerf_hugs_torch.models.nerfacto import MASK_GRID
-    from nerf_hugs_torch.tools.hashgrid_inputs import MASK_N
+    from nerf_hugs_torch.tools.hashgrid_inputs import MASK_N, pixel_centres
     gen = torch.Generator(device=dev).manual_seed(3)
     edges = torch.tensor([[1.0, 1.0], [1.0, 0.3], [0.3, 1.0], [0.0, 0.0],
                           [1.0, 0.0]], device=dev)
     sets = [(f"[{MASK_N}, 2] pixel centres of 16x16 patches",
-             pixel_centres(torch, dev, gen, MASK_N), None),
+             pixel_centres(gen, MASK_N), None),
             (f"{(1 << 20) + 5} positions with exact-1.0 edges",
              torch.cat([torch.rand((1 << 20, 2), generator=gen, device=dev),
                         edges]), None)]
@@ -477,32 +454,36 @@ def fused_route_check(torch, fused_mlp, x, ws, label):
     error (of the output's largest entry)."""
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
     fwd = fused_mlp.fused_mlp_fwd
-    before = (fwd.launches_resident, fwd.launches_streamed)
+    before = (fwd.launches_resident, fwd.launches_streamed, fwd.launches_f32)
     out_k = fwd(x, ws)
     out_p = fused_mlp.fused_mlp_plain(x, ws)
     torch.cuda.synchronize()
     check(out_k.shape == out_p.shape == (x.shape[0], dims[-1])
           and out_k.dtype == x.dtype,
           f"fused_mlp_fwd gave {tuple(out_k.shape)} {out_k.dtype} ({label})")
+    got = (fwd.launches_resident - before[0],
+           fwd.launches_streamed - before[1], fwd.launches_f32 - before[2])
     if x.dtype == torch.bfloat16:
         resident = fused_mlp.is_resident(x.dtype, dims)
-        got = (fwd.launches_resident - before[0],
-               fwd.launches_streamed - before[1])
-        check(got == ((1, 0) if resident else (0, 1)),
+        check(got == ((1, 0, 0) if resident else (0, 1, 0)),
               f"the bf16 launch took the wrong kernel ({label}): {got}")
+    else:
+        check(got == (0, 0, 1),
+              f"the fp32 launch took the wrong kernel ({label}): {got}")
     return float((out_k.float() - out_p.float()).abs().max()
                  / out_p.float().abs().max())
 
 
 def fused_mlp_phase(torch, fused_mlp, dev):
     """The fused-MLP kernels vs their plain version at the main path's
-    shapes, bf16 and fp32, on the ragged unaligned span, and (bf16) at the
-    shipped widths and the edges at small n; returns the worst abs error
-    and the timings."""
+    shapes, bf16 and fp32, on the ragged unaligned span, and at the
+    shipped widths (bf16) and each dtype's edges at small n; returns the
+    worst abs error per dtype at the main shapes and the timings."""
     from nerf_hugs_torch.tools.bench_fused_mlp import cublas_chain
     from nerf_hugs_torch.tools.hashgrid_inputs import BATCH, FUSED_SHAPES
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst, timings = 0.0, {}
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    timings = {}
     for dtype_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dtype_name)
         tol = FUSED_TOL[dtype_name]
@@ -523,7 +504,7 @@ def fused_mlp_phase(torch, fused_mlp, dev):
             sub_err = float((fused_mlp.fused_mlp_fwd(sub, ws).float()
                              - out_p[1:1 + sub.shape[0]].float()).abs().max())
             rel = max(rel, sub_err / scale)
-            worst = max(worst, rel * scale)
+            worst[dtype_name] = max(worst[dtype_name], rel * scale)
             call = lambda: fused_mlp.fused_mlp_fwd(x, ws)
             t = {"ms": median_ms(call),
                  "alone": device_ms(torch, call, kernel),
@@ -556,17 +537,28 @@ def fused_mlp_phase(torch, fused_mlp, dev):
                   f"({label}): {rel}")
             del x, ws, out_p, sub
     # bf16 at every shipped width and at the edges, small n: below one
-    # tile, and not a multiple of 64 with x starting one row in.
-    cases = [(dims, n, skip) for dims in shipped_fused_widths()
-             for n, skip in ((37, 0), (4097, 1))] + list(FUSED_EDGES)
-    for dims, n, skip in cases:
-        x, ws = fused_inputs(torch, dims, n + skip, torch.bfloat16, gen, dev)
-        label = (f"bf16 {dims} n={n}{' from row 1' if skip else ''} "
-                 + ("resident" if fused_mlp.is_resident(torch.bfloat16, dims)
-                    else "streamed"))
+    # tile, and not a multiple of 64 with x starting one row in; then fp32
+    # at its own edges.
+    cases = [(dims, n, skip, torch.bfloat16)
+             for dims in shipped_fused_widths()
+             for n, skip in ((37, 0), (4097, 1))] + [
+        (dims, n, skip, torch.bfloat16) for dims, n, skip in FUSED_EDGES] + [
+        (dims, n, skip, torch.float32)
+        for dims, n, skip in FUSED_EDGES_F32]
+    for dims, n, skip, dtype in cases:
+        x, ws = fused_inputs(torch, dims, n + skip, dtype, gen, dev)
+        if dtype == torch.float32:
+            plan = fused_mlp.f32_plan(dims)
+            how = (f"fp32, {plan['rows']}-row tiles, resident "
+                   f"{plan['resident']}")
+        else:
+            how = "bf16 " + ("resident" if fused_mlp.is_resident(
+                torch.bfloat16, dims) else "streamed")
+        label = f"{how} {dims} n={n}{' from row 1' if skip else ''}"
         rel = fused_route_check(torch, fused_mlp, x[skip:], ws, label)
         print(f"check {label}: max_rel={rel:.3e}", flush=True)
-        check(math.isfinite(rel) and rel <= FUSED_TOL["bfloat16"],
+        tol = FUSED_TOL[str(dtype).split(".")[-1]]
+        check(math.isfinite(rel) and rel <= tol,
               f"fused_mlp_fwd disagrees with its plain version ({label}): "
               f"{rel}")
     return worst, timings
@@ -691,6 +683,7 @@ def launch_counters():
                                        "launches_resident"),
             "fused_mlp_fwd_streamed": (fused_mlp.fused_mlp_fwd,
                                        "launches_streamed"),
+            "fused_mlp_fwd_f32": (fused_mlp.fused_mlp_fwd, "launches_f32"),
             "planar_accum": (accum.planar_accum, "launches"),
             "hashgrid_fwd_2d": (hashgrid.hashgrid_fwd, "launches_2d"),
             "hashgrid_bwd_2d": (hashgrid_bwd.hashgrid_table_grad,
@@ -735,6 +728,8 @@ def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, data_dir, dev,
 # The kernels each run must launch, and those it must not.
 DENSE = ("hashgrid_fwd", "hashgrid_bwd")
 FUSED = DENSE + ("fused_mlp_fwd", "fused_mlp_fwd_resident")
+# enable_amp off: the fused MLPs run in fp32.
+FUSED_F32 = DENSE + ("fused_mlp_fwd", "fused_mlp_fwd_f32")
 # No main path's MLP routes to the streamed bf16 kernel.
 NEVER = ("fused_mlp_fwd_streamed",)
 HANERF = DENSE + ("hashgrid_fwd_2d", "hashgrid_bwd_2d")
@@ -749,8 +744,9 @@ def stage_lines(log: str, stage: str):
 
 
 def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
-                tag: str, expected, finetune_steps: int = 0):
-    """8 full-width steps of `cfg_path` through the trainer, and its
+                tag: str, expected, finetune_steps: int = 0,
+                num_steps: int = 8):
+    """`num_steps` full-width steps of `cfg_path` through the trainer, and its
     finetune stage of `finetune_steps` when it has one; the launch
     counters are set to 0 before each stage and read after it. Checks that
     every kernel of `expected` launched in the train stage and no other
@@ -781,7 +777,7 @@ def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
 
     with open(os.path.join(save_dir, "run_log.log")) as f:
         log = f.read()
-    stages = {"train": 8, "finetune": finetune_steps}
+    stages = {"train": num_steps, "finetune": finetune_steps}
     check(sorted(launches) == sorted(k for k, v in stages.items() if v),
           f"stages run: {sorted(launches)}")
     lines = {stage: stage_lines(log, stage) for stage in stages}
@@ -799,20 +795,22 @@ def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     train = launches["train"]
     check(all(train[k] > 0 for k in expected),
           f"a kernel was not launched during training: {train}")
-    check(all(train[k] == 0 for k in FUSED + HANERF + NEVER
+    check(all(train[k] == 0 for k in FUSED + FUSED_F32 + HANERF + NEVER
               if k not in expected),
           f"the {tag} run launched a kernel off its path: {train}")
-    check(os.path.exists(os.path.join(save_dir, "checkpoint_8.pt")),
-          "no step-8 checkpoint")
+    check(os.path.exists(os.path.join(save_dir,
+                                      f"checkpoint_{num_steps}.pt")),
+          f"no step-{num_steps} checkpoint")
     evals = re.findall(r"\[train\] \d+: eval psnr=(\S+)", log)
     check(len(evals) == 1 and math.isfinite(float(evals[0])),
           "the final eval printed no PSNR")
-    # Steps 2..8, each timed from the previous print to its own (the
+    # Steps 2.., each timed from the previous print to its own (the
     # driver synchronises on the stats it prints).
-    rate = 7 / sum(1 / s[2] for s in steps[1:])
-    print(f"train ({tag}): 8 steps in {wall:.1f} s; steps/s after the "
+    rate = (len(steps) - 1) / sum(1 / s[2] for s in steps[1:])
+    print(f"train ({tag}): {len(steps)} steps in {wall:.1f} s; steps/s "
+          f"after the "
           f"first step {rate:.3f} ({rate * 16384:.0f} rays/s); losses "
-          f"{[round(s[1], 5) for s in steps]}; step-8 terms "
+          f"{[round(s[1], 5) for s in steps]}; step-{len(steps)} terms "
           f"{terms['train'][-1]}; eval psnr {evals[0]}; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {train}", flush=True)
     return launches, terms
@@ -829,10 +827,11 @@ def png_psnr(pred_path: str, gt_path: str) -> float:
 
 def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
                tag: str, expected, score: bool,
-               summary: str = "metrics_test_8.txt"):
-    """nerf_hugs_torch.eval on a run's newest checkpoint (checks that the
-    forward kernels of `expected` launched and that it wrote `summary`),
-    then, with `score`, the scoring CLI over the PNGs it wrote; returns the
+               summary: str = "metrics_test_8.txt", images: int = 2):
+    """nerf_hugs_torch.eval of `images` test images on a run's newest
+    checkpoint (checks that the forward kernels of `expected` launched, no
+    other hash-grid or MLP kernel did, and that it wrote `summary`), then,
+    with `score`, the scoring CLI over the PNGs it wrote; returns the
     eval's kernel launches."""
     from nerf_hugs_torch.eval import main as eval_main
     from nerf_hugs_torch.metrics import main as score_main
@@ -845,12 +844,13 @@ def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     launches = read_launches()
     check(all(launches[k] > 0 for k in expected if "bwd" not in k),
           f"eval did not run through the kernels: {launches}")
-    check(all(launches[k] == 0 for k in NEVER),
+    check(all(launches[k] == 0 for k in FUSED + FUSED_F32 + HANERF + NEVER
+              if k not in expected),
           f"eval launched a kernel off its path: {launches}")
 
     preds = os.path.join(save_dir, "test_preds")
     colors = sorted(f for f in os.listdir(preds) if f.endswith("_color.png"))
-    check(colors == ["000_color.png", "001_color.png"],
+    check(colors == [f"{i:03d}_color.png" for i in range(images)],
           f"eval wrote {colors}")
     summary_path = os.path.join(save_dir, summary)
     check(os.path.exists(summary_path), f"eval wrote no {summary}")
@@ -861,7 +861,7 @@ def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
           f"eval metrics out of range: {mean}")
     with open(os.path.join(save_dir, "run_log.log")) as f:
         renders = re.findall(r"image \d+/\d+ rendered in (\S+)s", f.read())
-    print(f"eval ({tag}): 2 images of 256x256 in {wall:.1f} s (render "
+    print(f"eval ({tag}): {images} images of 256x256 in {wall:.1f} s (render "
           f"{', '.join(renders)} s per image); mean {mean}; launches "
           f"{launches}", flush=True)
     if not score:
@@ -1071,6 +1071,16 @@ def main() -> None:
                     "fused MLPs, synthetic scene", FUSED)
         eval_launches = eval_phase(torch, fused_cfg, tmp, fused_dir,
                                    "fused MLPs", FUSED, score=True)
+        f32_cfg = base_yaml(tmp, fused=True, steps=F32_STEPS,
+                            enable_amp=False, eval_dataset_limit=1)
+        f32_dir = os.path.join(tmp, "exp", "fused_fp32")
+        train_phase(torch, f32_cfg, tmp, f32_dir,
+                    "fused MLPs in fp32, synthetic scene", FUSED_F32,
+                    num_steps=F32_STEPS)
+        f32_eval = eval_phase(torch, f32_cfg, tmp, f32_dir,
+                              "fused MLPs in fp32", FUSED_F32, score=False,
+                              summary=f"metrics_test_{F32_STEPS}.txt",
+                              images=1)
         hanerf_dir = os.path.join(tmp, "exp", "hanerf")
         hanerf_launches, terms = train_phase(
             torch, hanerf_cfg, distractor, hanerf_dir,
@@ -1093,6 +1103,7 @@ def main() -> None:
     field = timings["field"]
     mask = timings_2d[MASK_N]
     head = fused_timings[("field mlp_head", "bfloat16")]
+    head_f32 = fused_timings[("field mlp_head", "float32")]
     acc = accum_timings[81]
     print(json.dumps({"kernels": [
         {"name": "hashgrid_fwd", "route": "cuda",
@@ -1115,9 +1126,18 @@ def main() -> None:
          "source": "nerf_hugs_torch/csrc/fused_mlp.cu",
          "replaces": "nerf_hugs_tpu/ops/fused_mlp.py:39",
          "launches": eval_launches["fused_mlp_fwd_resident"],
-         "max_abs_err": fused_worst, "ms": head["ms"],
+         "max_abs_err": fused_worst["bfloat16"], "ms": head["ms"],
          "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
          "bound_by": head["bound_by"], "library_ms": head["library_ms"]},
+        {"name": "fused_mlp_fwd_fp32", "route": "cuda",
+         "source": "nerf_hugs_torch/csrc/fused_mlp.cu",
+         "replaces": "nerf_hugs_tpu/ops/fused_mlp.py:39",
+         "launches": f32_eval["fused_mlp_fwd_f32"],
+         "max_abs_err": fused_worst["float32"], "ms": head_f32["ms"],
+         "plain_ms": head_f32["plain_ms"],
+         "bound_ms": head_f32["bound_ms"],
+         "bound_by": head_f32["bound_by"],
+         "library_ms": head_f32["library_ms"]},
         {"name": "planar_accum", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/accum.cu",
          "replaces": "tools/bench_fwd_copies.py:94",

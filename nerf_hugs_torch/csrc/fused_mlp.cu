@@ -56,25 +56,65 @@
 //   Widths whose weights and one input tile do not fit 227 KB (more than
 //   ~200 KB of weights, e.g. 8 layers of 256) take the streamed design.
 //
-// bf16 streamed weights (fused_mlp_bf16_kernel) and fp32:
+// bf16 streamed weights (fused_mlp_bf16_kernel):
 //   * A block owns a tile of rows and runs every layer over it; the tile's
 //     activations ping-pong between two shared-memory buffers, rounded to
-//     the input dtype, so only the input and the last layer's output touch
-//     device memory.
-//   * Weights stream through shared memory in fixed 64-column slices (64 K
-//     rows in bf16, 32 in fp32; a 256x256 fp32 layer is 256 KiB, more than
-//     a block may hold). The wrapper hands them over zero-padded to whole
-//     slices, so a slice is 512 16-byte cp.async copies with no bounds
-//     checks, and the copies of the next kStages - 1 slices (across chunk
-//     and layer boundaries: the weights depend on nothing computed)
-//     overlap the products on the current one. The input tile, a
-//     contiguous span of x, arrives by cp.async as well.
-//   * bf16: mma.sync m16n8k16 bf16 -> fp32 on the tensor cores, one warp
-//     per 16 rows of the tile, widths padded to 16 with zeros inside
-//     shared memory.
-//   * fp32: plain FMAs on 4x4 register tiles fed by float4 shared loads
-//     (the tensor cores' fp32 input is TF32, which would drop bits the
-//     plain version keeps).
+//     bf16, so only the input and the last layer's output touch device
+//     memory.
+//   * Weights stream through shared memory in fixed 64 x 64 slices. The
+//     wrapper hands them over zero-padded to whole slices (W^T), so a
+//     slice is 512 16-byte cp.async copies with no bounds checks, and the
+//     copies of the next kStages - 1 slices (across chunk and layer
+//     boundaries: the weights depend on nothing computed) overlap the
+//     products on the current one. The input tile, a contiguous span of
+//     x, arrives by cp.async as well.
+//   * mma.sync m16n8k16 bf16 -> fp32 on the tensor cores, one warp per 16
+//     rows of the tile, widths padded to 16 with zeros inside shared
+//     memory.
+//
+// fp32 (fused_mlp_f32_kernel; enable_amp off): exact fp32 FMAs, as the
+// plain version and JAX's HIGHEST precision compute them (the tensor
+// cores' fp32 input is TF32, which would drop bits). What bounds it on
+// this card is the FMA rate, 67 TFLOP/s: the field's head is 366 GFLOP
+// over 2^21 rows, 5.43 ms, against 0.1 ms of bytes. The first design
+// (4 x 4 register tiles, two ping-pong activation buffers of 172 KB at
+// width 256, every layer padded to 64 columns and streamed from padded
+// copies for every 64-row tile) took 22.1 ms there, slower than the cuBLAS
+// fp32 chain (12.5 ms; NVIDIA H100 80GB HBM3, 700.00 W). Now:
+//   * A thread holds an 8 x 8 tile of sums (64 registers): per 4 k, 8
+//     float4 loads of activations (one address for a warp's lanes) and 8
+//     of weights for 256 FMAs. A block holds a whole layer's output for a
+//     tile of rows (rows x width <= 64 x threads), so the activations live
+//     in one shared buffer, [rows][width + 4], updated in place: the sums
+//     stay in registers until every thread has read the layer's input,
+//     then overwrite it (64 KB at width 256, 64 rows).
+//   * A thread's 8 columns are two runs of 4, c0 and n_cov / 2 + c0, so
+//     a warp's weight loads and epilogue stores are contiguous.
+//   * Layers are covered to a multiple of 8 columns, not 64 (3 -> 8, 65
+//     -> 72, 1 -> 8). Where a layer's tiles leave threads idle (the narrow
+//     output layers), S = 2..32 consecutive lanes share a tile, each
+//     taking every S-th group of 4 k, and their sums meet by shuffles.
+//   * The weights are read as the caller holds them ([d_in, d_out]
+//     row-major, no host copy): `make_f32_plan` keeps every layer that
+//     fits in shared memory for the whole launch (persistent blocks; two
+//     of 256 threads an SM where everything fits 113 KB, as at the
+//     proposal's base and NeRF-W's transient head, else one, as at the
+//     field's base) and streams the rest in 32-row slices through a
+//     two-stage cp.async ring, one barrier a slice, once per tile (the
+//     heads' 256 x 256 layers and inputs). Streaming blocks have 512
+//     threads and 128-row tiles, so each slice serves twice the rows.
+//   * The input tile arrives by 4-byte cp.async copies with zero fill
+//     past the rows and the width.
+//   The head now takes 11.73 ms alone (the first design 21.23), below the
+//   cuBLAS fp32 chain's 12.60, at 46% of its bound; the field's base 4.83
+//   (9.10), the proposal's 0.80 (1.90) (tools/bench_fused_mlp.py --dtype
+//   float32, one call, NVIDIA H100 80GB HBM3, 700.00 W). Tried on the card
+//   and not kept, for no gain or a loss: prefetching the next 4 k of
+//   activations into registers, the 8 x 8 products in the other loop
+//   order, two 256-thread blocks an SM streaming 16-row slices at the
+//   heads. The likeliest limits, unverified (no hardware counters on
+//   that machine): the FMA loop's shared-memory loads (16 float4 a thread
+//   per 256 FMAs), and in the bases the per-tile input copy and barriers.
 // Products of bf16 values are exact in fp32, so a bf16 result differs from
 // the plain version only by the order of the fp32 sums, which can flip an
 // isolated bf16 rounding. Nothing is written past a row of out or past a
@@ -92,9 +132,8 @@ constexpr int kMaxWidth = 256;
 constexpr int kChunk = 64;  // output columns per pass over K
 
 struct Mlp {
-  // Layer l, zero-padded by the caller: bf16 W^T as [round_up(d_out, 64)]
-  // [round_up(d_in, 64)], fp32 W as [round_up(d_in, 32)][round_up(d_out,
-  // 64)], both row-major.
+  // Layer l of the streamed bf16 kernel, zero-padded by the caller: W^T
+  // as [round_up(d_out, 64)][round_up(d_in, 64)] row-major.
   const void* w[kMaxLayers];
   int dims[kMaxLayers + 1];
   int num_layers;
@@ -870,127 +909,384 @@ fused_mlp_resident_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// --- fp32: FMAs ---------------------------------------------------------
+// --- fp32: FMAs on 8x8 register tiles -----------------------------------
 
-constexpr int kThreadsF32 = 256;
-constexpr int kRowsF32 = 64;
-constexpr int kSliceF32 = 32;
-constexpr int kWBufF32 = kSliceF32 * kChunk;
+constexpr int kSliceF32 = 32;  // weight rows of a streamed slice
+constexpr int kMaxSlices = kMaxLayers * kMaxWidth / kSliceF32;
+// A block holds 64 sums a thread, so a tile of rows x n_cov outputs needs
+// rows * n_cov <= 64 * threads. 256 threads where the weights stay
+// resident, 512 (one block an SM, 128 registers a thread either way)
+// where some stream: a tile twice as tall then takes each streamed slice.
+constexpr int kMaxRowsF32 = 256;
+// Shared memory of one of two blocks on an SM (228 KB less 1 KB a block).
+constexpr int kHalfSmem = 115712;
 
-// Copies the [32 k][64 n] slice at (k0, n0) of layer l's padded W.
-__device__ __forceinline__ void issue_slice_f32(
-    const Mlp& m, const SliceCursor<kSliceF32, 1>& c, float* dst) {
-  const float* w = static_cast<const float*>(m.w[c.l]);
-  const int ld = round_up(m.dims[c.l + 1], 64);
-#pragma unroll
-  for (int i = 0; i < kSliceF32 * kChunk / 4 / kThreadsF32; ++i) {
-    const int v = threadIdx.x + i * kThreadsF32;
-    const int row = v >> 4, col = (v & 15) * 4;
-    cp_async16(dst + row * kChunk + col,
-               w + (int64_t)(c.k0 + row) * ld + c.n0 + col);
+struct F32Plan {
+  const float* w[kMaxLayers];  // as the caller holds them, [d_in, d_out]
+  int dims[kMaxLayers + 1];
+  int k_pad[kMaxLayers];        // round_up(d_in, 4)
+  int n_cov[kMaxLayers];        // round_up(d_out, 8): the columns computed
+  int w_off[kMaxLayers];        // byte offset of a resident layer, else -1
+  int slice_first[kMaxLayers];  // a streamed layer's first slice
+  int num_layers;
+  int threads;                  // 256 or 512
+  int rows;                     // M: rows of a tile, a multiple of 8
+  int astride;                  // floats per activation row
+  int act_off;                  // the activations: rows x astride floats
+  int ring_off, ring_stage;     // two stages of streamed weight slices
+  int smem_bytes;
+  int blocks_per_sm;            // 2 within kHalfSmem, else 1
+  int slices;                   // streamed slices per tile
+  uint8_t slice_layer[kMaxSlices];
+  uint8_t slice_k4[kMaxSlices];  // first weight row / 4
+};
+
+// The fp32 rule, by widths alone; mirrored by ops/fused_mlp.py::f32_plan.
+// A tile is at most as tall as a block's sums allow at the widest layer
+// (64 x threads / n_cov rows, at most 256). Every layer stays resident
+// where a block and tile height fit (below); else the layers that fit
+// stay resident in order and the rest stream through the ring, in blocks
+// of 512 threads at the tallest tile that fits beside the ring. (Choosing
+// among 256- and 512-thread blocks by how many threads each layer keeps
+// busy was slower at the field's base in a one-off comparison on the card
+// (NVIDIA H100 80GB HBM3, 700.00 W): its 512-thread tile of 112 rows
+// splits the output layer's sums four ways.)
+bool make_f32_plan(const int32_t* dims, int num_layers, F32Plan* p) {
+  int max_d = dims[0], max_cov = 0, weights = 0;
+  for (int l = 0; l < num_layers; ++l) {
+    p->dims[l] = dims[l];
+    p->k_pad[l] = round_up(dims[l], 4);
+    p->n_cov[l] = round_up(dims[l + 1], 8);
+    p->w_off[l] = -1;
+    p->slice_first[l] = 0;
+    weights += p->k_pad[l] * p->n_cov[l] * 4;
+    max_cov = max_cov > p->n_cov[l] ? max_cov : p->n_cov[l];
+    max_d = max_d > dims[l + 1] ? max_d : dims[l + 1];
+  }
+  p->dims[num_layers] = dims[num_layers];
+  p->num_layers = num_layers;
+  p->astride = round_up(max_d, 4) + 4;
+  const int row_bytes = p->astride * 4;
+  auto top_rows = [&](int threads) {
+    const int m = 64 * threads / max_cov / 8 * 8;
+    return m < kMaxRowsF32 ? m : kMaxRowsF32;
+  };
+  // Every layer resident: in blocks of 256 threads, two an SM with the
+  // tile down to half of the tallest, else one an SM at any height.
+  auto resident_all = [&](int rows, int bps) {
+    int off = 0;
+    for (int l = 0; l < num_layers; ++l) {
+      p->w_off[l] = off;
+      off += p->k_pad[l] * p->n_cov[l] * 4;
+    }
+    p->threads = 256;
+    p->rows = rows;
+    p->act_off = off;
+    p->ring_off = off + rows * row_bytes;
+    p->ring_stage = 0;
+    p->smem_bytes = p->ring_off;
+    p->blocks_per_sm = bps;
+    p->slices = 0;
+    return true;
+  };
+  const int top = top_rows(256);
+  for (int m = top; m >= 8 && 2 * m >= top; m = m / 2 / 8 * 8) {
+    if (weights + m * row_bytes <= kHalfSmem) return resident_all(m, 2);
+  }
+  for (int m = top; m >= 8; m = m / 2 / 8 * 8) {
+    if (weights + m * row_bytes <= kSmemBudget) return resident_all(m, 1);
+  }
+  const int ring = 2 * kSliceF32 * max_cov * 4;
+  int m = top_rows(512);
+  while (m > 8 && m * row_bytes + ring > kSmemBudget) m = m / 2 / 8 * 8;
+  if (m * row_bytes + ring > kSmemBudget) return false;
+  int off = 0, stream_cov = 0;
+  for (int l = 0; l < num_layers; ++l) {
+    const int bytes = p->k_pad[l] * p->n_cov[l] * 4;
+    if (off + bytes + m * row_bytes + ring <= kSmemBudget) {
+      p->w_off[l] = off;
+      off += bytes;
+    } else {
+      stream_cov = stream_cov > p->n_cov[l] ? stream_cov : p->n_cov[l];
+    }
+  }
+  p->threads = 512;
+  p->rows = m;
+  p->act_off = off;
+  p->ring_off = off + m * row_bytes;
+  p->ring_stage = kSliceF32 * stream_cov * 4;
+  p->smem_bytes = p->ring_off + 2 * p->ring_stage;
+  p->blocks_per_sm = 1;
+  int q = 0;
+  for (int l = 0; l < num_layers; ++l) {
+    if (p->w_off[l] >= 0) continue;
+    p->slice_first[l] = q;
+    for (int k0 = 0; k0 < p->k_pad[l]; k0 += kSliceF32) {
+      p->slice_layer[q] = (uint8_t)l;
+      p->slice_k4[q] = (uint8_t)(k0 / 4);
+      ++q;
+    }
+  }
+  p->slices = q;
+  return true;
+}
+
+__device__ __forceinline__ void cp_async_zfill4(void* smem, const void* gmem,
+                                                bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_zfill16(void* smem,
+                                                 const void* gmem,
+                                                 bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// Starts copying rows k0 .. k0 + len - 1 of layer l's W into `dst` as
+// [len][n_cov], zero past d_in and past d_out (the caller commits): 16-byte
+// copies where every row of W starts on 16 bytes, 4-byte ones otherwise.
+// A thread keeps one column of copies and steps over rows.
+__device__ __forceinline__ void copy_weight_rows(const F32Plan& p, int l,
+                                                 int k0, int len,
+                                                 float* dst) {
+  const float* w = p.w[l];
+  const int d_in = p.dims[l], d_out = p.dims[l + 1], ldw = p.n_cov[l];
+  const bool vec =
+      (d_out & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int width = vec ? 4 : 1;         // floats a copy
+  const int per_row = ldw / width;       // at most 256: one pass of threads
+  const int step = blockDim.x / per_row;  // rows a pass
+  const int r0 = threadIdx.x / per_row;
+  const int c = width * ((int)threadIdx.x - r0 * per_row);
+  if (r0 >= step) return;
+  for (int r = r0; r < len; r += step) {
+    const bool ok = k0 + r < d_in && c < d_out;
+    const float* src = ok ? w + (int64_t)(k0 + r) * d_out + c : w;
+    if (vec) {
+      cp_async_zfill16(dst + r * ldw + c, src, ok);
+    } else {
+      cp_async_zfill4(dst + r * ldw + c, src, ok);
+    }
   }
 }
 
-// Activations are stored transposed, [k][kActStrideF32] (k-major, the 64
-// rows of the tile contiguous), so thread (ty, tx) = (tid / 16, tid % 16),
-// which owns rows 4 ty .. 4 ty + 3 and columns n0 + 4 tx .. n0 + 4 tx + 3,
-// reads its four activations and its four weights of each k as one float4
-// each: two shared loads per 16 FMAs. A warp's activation reads are two
-// broadcasts.
-constexpr int kActStrideF32 = kRowsF32 + 4;
+// acc[i][j] += sum over k of a[i][k] w[k][col j], k4 = k / 4 from k4_begin
+// to k4_end in steps of k4_step; `a` is row m0 of the activations, `w`
+// the weight row k_base of the layer. Columns c0 .. c0 + 3 and half + c0 ..
+// half + c0 + 3: each 4-wide run of a warp's lanes is contiguous, so the
+// weight reads and the epilogue's writes are free of bank conflicts.
+__device__ __forceinline__ void fma_tile(float (&acc)[8][8], const float* a,
+                                         int astride, const float* w,
+                                         int k_base, int ldw, int c0,
+                                         int half, int k4_begin, int k4_end,
+                                         int k4_step) {
+#pragma unroll 1
+  for (int k4 = k4_begin; k4 < k4_end; k4 += k4_step) {
+    const int k = 4 * k4;
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a + i * astride + k);
+    }
+    const float* wk = w + (k - k_base) * ldw;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(wk + kk * ldw + c0);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(wk + kk * ldw + half + c0);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float ak = kk == 0 ? av[i].x
+                         : kk == 1 ? av[i].y
+                         : kk == 2 ? av[i].z
+                                   : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ak, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
 
-__global__ void __launch_bounds__(kThreadsF32)
+// Persistent blocks walk tiles of p.rows rows. A tile's activations live in
+// one shared buffer, [rows][astride] row-major, updated in place: a layer's
+// sums stay in registers until every thread is done reading its input,
+// then overwrite it. Layer l's outputs are covered by (rows / 8) x (n_cov
+// / 8) thread tiles of 8 rows x 8 columns; where that leaves threads idle
+// (narrow layers), S threads share a tile, each taking every S-th group of
+// 4 k, and their sums meet by shuffles (S consecutive lanes).
+template <int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_mlp_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                     int64_t n, Mlp mlp, int max_in) {
+                     int64_t n, const __grid_constant__ F32Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* wbuf = reinterpret_cast<float*>(smem);  // kStages slices
-  float* act[2];
-  act[0] = wbuf + kStages * kWBufF32;
-  act[1] = act[0] + max_in * kActStrideF32;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int64_t row0 = (int64_t)blockIdx.x * kRowsF32;
+  float* act = reinterpret_cast<float*>(smem + p.act_off);
+  float* ring = reinterpret_cast<float*>(smem + p.ring_off);
+  const int tid = threadIdx.x;
+  const int rows_tile = p.rows, as = p.astride;
+  const int d_in = p.dims[0], k_in = p.k_pad[0];
+  const int d_out = p.dims[p.num_layers];
 
-  SliceCursor<kSliceF32, 1> cur, next;
-  const int d_in = mlp.dims[0];
-  stage_input(x, row0, n, kRowsF32, d_in, act[1], kThreadsF32);
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (next.valid(mlp)) {
-      issue_slice_f32(mlp, next, wbuf + i * kWBufF32);
-      next.advance(mlp);
+  for (int l = 0; l < p.num_layers; ++l) {
+    if (p.w_off[l] >= 0) {
+      copy_weight_rows(p, l, 0, p.k_pad[l],
+                       reinterpret_cast<float*>(smem + p.w_off[l]));
     }
-    cp_async_commit();
   }
-  cp_async_wait<kStages - 2>();
+  cp_async_commit();
+  auto issue = [&](int pos, int stage) {
+    const int l = p.slice_layer[pos], k0 = 4 * p.slice_k4[pos];
+    const int len = min(kSliceF32, p.k_pad[l] - k0);
+    copy_weight_rows(p, l, k0, len, ring + stage * (p.ring_stage / 4));
+    cp_async_commit();
+  };
+  if (p.slices > 0) issue(0, 0);
+  cp_async_wait_upto(p.slices > 0 ? 1 : 0);  // the resident weights
   __syncthreads();
-  for (int i = tid; i < kRowsF32 * d_in; i += kThreadsF32) {
-    const int r = i / d_in, c = i - r * d_in;
-    act[0][c * kActStrideF32 + r] = row0 + r < n ? act[1][i] : 0.0f;
-  }
 
-  float acc[4][4];
-  for (int step = 0; cur.valid(mlp); ++step) {
-    __syncthreads();
-    if (next.valid(mlp)) {
-      issue_slice_f32(mlp, next,
-                      wbuf + ((step + kStages - 1) % kStages) * kWBufF32);
-      next.advance(mlp);
-    }
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-
-    const int l = cur.l;
-    const int k_dim = mlp.dims[l], n_dim = mlp.dims[l + 1];
-    const int k_len = min(kSliceF32, k_dim - cur.k0);
-    if (cur.k0 == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  const int64_t tiles = (n + rows_tile - 1) / rows_tile;
+  int q = 0;  // slices consumed by this block
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * rows_tile;
+    const int rows = (int)(n - row0 < rows_tile ? n - row0 : rows_tile);
+    __syncthreads();  // the previous tile's last layer has read act
+    // The tile's rows of x by 4-byte copies, zero past row `rows` and
+    // column d_in (k_in <= 256 <= threads: one column a thread).
+    {
+      const float* xs = x + row0 * d_in;
+      const int step = kThreads / k_in, r0 = tid / k_in;
+      const int c = tid - r0 * k_in;
+      if (r0 < step) {
+        for (int r = r0; r < rows_tile; r += step) {
+          const bool ok = r < rows && c < d_in;
+          cp_async_zfill4(act + r * as + c, ok ? xs + r * d_in + c : x, ok);
+        }
       }
+      cp_async_commit();
+      cp_async_wait<0>();
     }
-    const float* a_in = act[l & 1] + cur.k0 * kActStrideF32 + 4 * ty;
-    const float* ws = wbuf + (step % kStages) * kWBufF32 + 4 * tx;
-#pragma unroll 8
-    for (int kk = 0; kk < k_len; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(
-          a_in + kk * kActStrideF32);
-      const float4 b = *reinterpret_cast<const float4*>(ws + kk * kChunk);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
+    __syncthreads();
 
-    if (cur.k0 + kSliceF32 >= k_dim) {
-      const bool last = l == mlp.num_layers - 1;
-      float* a_out = act[(l + 1) & 1];
+    for (int l = 0; l < p.num_layers; ++l) {
+      const int n_cov = p.n_cov[l], cgs = n_cov / 8, half = n_cov / 2;
+      const int d_next = p.dims[l + 1];
+      const int tiles_l = rows_tile / 8 * cgs;
+      int split = 1;
+      while (split < 32 && 2 * split * tiles_l <= kThreads) split *= 2;
+      const int t = tid / split, part = tid - t * split;
+      const bool active = t < tiles_l;
+      const int rg = active ? t / cgs : 0;
+      const int m0 = 8 * rg, c0 = 4 * (active ? t - rg * cgs : 0);
+      float acc[8][8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cur.n0 + 4 * tx + j;
-        if (col >= n_dim) continue;
-        if (last) {
+      for (int i = 0; i < 8; ++i) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int64_t row = row0 + 4 * ty + i;
-            if (row < n) out[row * n_dim + col] = acc[i][j];
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      }
+      const float* a = act + m0 * as;
+      const int k4s = p.k_pad[l] / 4;
+      if (p.w_off[l] >= 0) {
+        if (active) {
+          fma_tile(acc, a, as,
+                   reinterpret_cast<const float*>(smem + p.w_off[l]), 0,
+                   n_cov, c0, half, part, k4s, split);
+        }
+      } else {
+        for (int pos = p.slice_first[l]; pos < p.slices &&
+                                         p.slice_layer[pos] == l;
+             ++pos) {
+          cp_async_wait<0>();  // slice q has landed (this thread's part)
+          // Every thread's part has, and every thread is done with slice
+          // q - 1: its stage takes the next slice while q is multiplied.
+          __syncthreads();
+          issue((pos + 1) % p.slices, (q + 1) & 1);
+          const int k4_0 = p.slice_k4[pos];
+          const int k4_1 = min(k4_0 + kSliceF32 / 4, k4s);
+          if (active) {
+            fma_tile(acc, a, as, ring + (q & 1) * (p.ring_stage / 4),
+                     4 * k4_0, n_cov, c0, half, k4_0 + part, k4_1, split);
           }
-        } else {
-          float4 v;
-          v.x = acc[0][j] < 0.0f ? 0.0f : acc[0][j];
-          v.y = acc[1][j] < 0.0f ? 0.0f : acc[1][j];
-          v.z = acc[2][j] < 0.0f ? 0.0f : acc[2][j];
-          v.w = acc[3][j] < 0.0f ? 0.0f : acc[3][j];
-          *reinterpret_cast<float4*>(a_out + col * kActStrideF32 + 4 * ty) =
-              v;
+          ++q;
+        }
+      }
+      // The sums of a shared tile meet in its part-0 lane; only columns
+      // some lane of the tile keeps are summed.
+      for (int o = split / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if ((j < 4 ? j : half + j - 4) < d_next) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], o);
+            }
+          }
+        }
+      }
+      const bool writer = active && part == 0;
+      if (l < p.num_layers - 1) {
+        __syncthreads();  // every thread has read this layer's input
+        if (writer) {
+          // ReLU that keeps a NaN, as torch.relu does; columns past the
+          // layer's width are written as zeros (the next layer's padding).
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float v[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = j < 4 ? c0 + j : half + c0 + j - 4;
+              v[j] = col >= d_next ? 0.0f
+                     : acc[i][j] < 0.0f ? 0.0f
+                                        : acc[i][j];
+            }
+            float* dst = act + (m0 + i) * as;
+            *reinterpret_cast<float4*>(dst + c0) =
+                make_float4(v[0], v[1], v[2], v[3]);
+            *reinterpret_cast<float4*>(dst + half + c0) =
+                make_float4(v[4], v[5], v[6], v[7]);
+          }
+        }
+        __syncthreads();
+      } else if (writer) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (m0 + i < rows) {
+            float* dst = out + (row0 + m0 + i) * d_out;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int col = j < 4 ? c0 + j : half + c0 + j - 4;
+              if (col < d_out) dst[col] = acc[i][j];
+            }
+          }
         }
       }
     }
-    cur.advance(mlp);
   }
+  cp_async_wait<0>();  // slices issued past the block's last tile
+}
+
+template <int kThreads, int kMinBlocks>
+cudaError_t launch_f32(const float* x, float* out, int64_t n,
+                       const F32Plan& plan, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_f32_kernel<kThreads, kMinBlocks>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (n + plan.rows - 1) / plan.rows;
+  const int64_t most = (int64_t)sms * plan.blocks_per_sm;
+  const unsigned int blocks = (unsigned int)(tiles < most ? tiles : most);
+  fused_mlp_f32_kernel<kThreads, kMinBlocks>
+      <<<blocks, kThreads, plan.smem_bytes, st>>>(x, out, n, plan);
+  return cudaSuccess;
 }
 
 template <int kMaxK, int kOutRegs>
@@ -1020,10 +1316,11 @@ cudaError_t launch_resident(const __nv_bfloat16* x, __nv_bfloat16* out,
 // x: [n, dims[0]]; weights: host array of num_layers device pointers;
 // dims: host array of num_layers + 1 widths, each in 1..256; out: [n,
 // dims[num_layers]], 16-byte aligned. All device arrays contiguous, of one
-// dtype: 0 = float32, 1 = bfloat16. bf16 widths that make_resident_plan
-// accepts run on the resident kernel and take each weight as the caller
-// holds it, [d_in, d_out] row-major; every other call takes the
-// zero-padded layouts of Mlp::w. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. fp32 runs on fused_mlp_f32_kernel and
+// bf16 widths that make_resident_plan accepts on the resident kernel, both
+// taking each weight as the caller holds it, [d_in, d_out] row-major; the
+// other bf16 widths take the zero-padded layout of Mlp::w. Returns a
+// cudaError_t.
 extern "C" int fused_mlp_fwd(const void* x, const void* const* weights,
                              const int32_t* dims, int num_layers, int64_t n,
                              void* out, int dtype, void* stream) {
@@ -1073,17 +1370,19 @@ extern "C" int fused_mlp_fwd(const void* x, const void* const* weights,
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
         n, mlp, act_stride);
   } else if (dtype == 0) {
-    const size_t bytes =
-        (kStages * (size_t)kWBufF32 + 2 * (size_t)max_in * kActStrideF32) *
-        sizeof(float);
-    err = cudaFuncSetAttribute(fused_mlp_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+    F32Plan plan;
+    if (!make_f32_plan(dims, num_layers, &plan)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    for (int l = 0; l < num_layers; ++l) {
+      plan.w[l] = static_cast<const float*>(weights[l]);
+    }
+    const float* xf = static_cast<const float*>(x);
+    float* of = static_cast<float*>(out);
+    err = plan.threads == 512    ? launch_f32<512, 1>(xf, of, n, plan, st)
+          : plan.blocks_per_sm == 2 ? launch_f32<256, 2>(xf, of, n, plan, st)
+                                    : launch_f32<256, 1>(xf, of, n, plan, st);
     if (err != cudaSuccess) return (int)err;
-    const unsigned int blocks = (unsigned int)((n + kRowsF32 - 1) / kRowsF32);
-    fused_mlp_f32_kernel<<<blocks, kThreadsF32, bytes, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), n, mlp,
-        max_in);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -58,11 +58,34 @@
 //     put whole warps in one cell at its coarse levels);
 //   - where two x-corners share an aligned row pair, one float4 atomic adds
 //     both (sm_90 has vector atomics in global memory).
+// d = 2 (hashgrid_bwd2d_kernel; the HA-NeRF mask, 16 levels of which 0-11
+// are dense, 256 to 315848 rows): at 2^20 uniform positions the d = 3
+// design lost to one index_add_ (1.932 ms alone against 1.421, NVIDIA H100
+// 80GB HBM3, 700.00 W): every block of a coarse level added into the same
+// few hundred rows, about 16,000 atomics per row at level 0, and uniform
+// lanes rarely share a cell, so the warp combine seldom fired. Now a block
+// takes a span of up to 32 samples a thread at one level; a dense level of
+// at most kSharedRows rows (levels 0-5) is summed in the block's shared
+// memory, each warp first summing its same-cell lanes for groups of any
+// shape (reduce_peers: match_any, then a shuffle tree over the group), and
+// the block then adds each nonzero aligned row pair with one float4 atomic.
+// Float atomics on shared memory compile to a compare-and-swap loop on
+// sm_90a (ATOMS.CAST.SPIN in the SASS), so the group sum before them
+// matters on pixel patches, whose warps share one cell at the coarse
+// levels. The other levels keep the per-sample path of scatter_level<2>,
+// over the same span: the group sum there too neither won nor lost beyond
+// the noise on pixel centres and 2^20 uniform positions (a one-off
+// variant timed with tools/bench_hashgrid.py kernels --baseline, NVIDIA
+// H100 80GB HBM3, 700.00 W). The mask's gradient now takes 0.0112 ms
+// alone at its 16384 pixel centres (0.0195 before) and 0.744 ms at 2^20
+// uniform positions (1.928), against index_add_'s 1.403 ms
+// (bench_hashgrid.py kernels, same card). The d = 3 kernel is
+// unchanged.
 // Only the order of the fp32 additions changes. The payload stays fp32, the
 // JAX package's bwd_dtype='float32' mode. Positions get no gradient.
-// Summing the coarse levels in a block's shared memory first lost on the
-// main path's inputs (Hopper has no float add on shared memory: each add is
-// a compare-and-swap loop), so the gradient goes to the L2 directly.
+// Summing the coarse levels of the 3-D grids in shared memory first lost
+// on their main-path inputs, so at d = 3 the gradient goes to the L2
+// directly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -308,6 +331,130 @@ hashgrid_bwd_kernel(const float* __restrict__ pos,
                    grad_table + lv.offset);
 }
 
+// --- d = 2: spans of samples, coarse levels summed in shared memory -------
+
+// Dense levels of at most kSharedRows rows (52 KB of float2: the mask's
+// levels 0-5, 256 to 6568 rows) are summed in the block's shared memory;
+// 4 blocks of 256 threads still fit an SM.
+constexpr int kSharedRows = 6656;
+constexpr int kSpanMax = 32;  // samples per thread of one block, at most
+constexpr int kMaxDevices = 64;
+
+// Sums v over each group of lanes in `peers` (the lanes of one cell) into
+// the group's lowest lane, for groups of any shape: a tree over the group's
+// members in lane order, ceil(log2(size)) shuffle rounds, none where every
+// lane is alone. Called by every lane of a full warp.
+__device__ __forceinline__ void reduce_peers(unsigned peers, float2 (&v)[4]) {
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned rel = __popc(peers & ((1u << lane) - 1u));  // rank in the group
+  unsigned above = peers & ~((2u << lane) - 1u);       // members above
+  while (__any_sync(kFull, above != 0u)) {
+    const int next = __ffs(above);  // the next member still summing, or 0
+    const int src = next ? next - 1 : (int)lane;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float x = __shfl_sync(kFull, v[c].x, src);
+      const float y = __shfl_sync(kFull, v[c].y, src);
+      if (next) {
+        v[c].x = __fadd_rn(v[c].x, x);
+        v[c].y = __fadd_rn(v[c].y, y);
+      }
+    }
+    // Odd ranks were taken by the member below: they leave the tree.
+    above &= ~__ballot_sync(kFull, rel & 1u);
+    rel >>= 1;
+  }
+}
+
+// grid (ceil(n / (span * kThreads)), L), kSharedRows float2 of dynamic
+// shared memory: block x takes samples [x * span * kThreads, ...) at level
+// blockIdx.y, kThreads at a time (coalesced). A level that fits
+// kSharedRows and is dense sums into the block's copy of its gradient:
+// each warp first sums the payloads of its lanes in one cell
+// (reduce_peers), the group's lowest lane adds its 4 corners with shared
+// float atomics, and after the span each nonzero aligned row pair goes to
+// the gradient with one float4 atomic: one atomic per (block, row pair)
+// instead of one per (sample, corner). Every other level takes the path of
+// scatter_level<2> for each sample.
+__global__ void __launch_bounds__(kThreads)
+hashgrid_bwd2d_kernel(const float* __restrict__ pos,
+                      const float2* __restrict__ grad_out,
+                      float2* __restrict__ grad_table, int64_t n,
+                      int num_levels, uint32_t hash_mask, int hash_add,
+                      const int4* __restrict__ levels, int span) {
+  extern __shared__ __align__(16) float2 acc[];
+  const int l = blockIdx.y;
+  const LevelRow lv = load_level(levels, l);
+  const int64_t first = (int64_t)blockIdx.x * span * kThreads;
+  float2* grad = grad_table + lv.offset;
+  if (!lv.dense || lv.size > (uint32_t)kSharedRows) {
+    for (int i = 0; i < span; ++i) {
+      const int64_t base = first + (int64_t)i * kThreads;
+      if (base >= n) break;  // block-uniform
+      const int64_t s = base + threadIdx.x;
+      const bool valid = s < n;
+      const float2 g = valid ? __ldg(grad_out + s * num_levels + l)
+                             : make_float2(0.0f, 0.0f);
+      scatter_level<2>(pos, s, valid, g, lv, hash_mask, hash_add != 0, grad);
+    }
+    return;
+  }
+  for (uint32_t r = threadIdx.x; r < lv.size; r += kThreads) {
+    acc[r] = make_float2(0.0f, 0.0f);
+  }
+  __syncthreads();
+  const unsigned lane = threadIdx.x & 31u;
+  for (int i = 0; i < span; ++i) {
+    const int64_t base = first + (int64_t)i * kThreads;
+    if (base >= n) break;  // block-uniform
+    const int64_t s = base + threadIdx.x;
+    const bool valid = s < n;
+    const float2 g = valid ? __ldg(grad_out + s * num_levels + l)
+                           : make_float2(0.0f, 0.0f);
+    const bool nz = valid && (g.x != 0.0f || g.y != 0.0f);
+    const unsigned nz_lanes = __ballot_sync(kFull, nz);
+    if (nz_lanes == 0u) continue;  // the warp adds only zeros
+    uint32_t x0[2], row[4];
+    float frac[2], w[4];
+    if (valid) {
+      const float p[2] = {__ldg(pos + 2 * s), __ldg(pos + 2 * s + 1)};
+      locate<2>(p, lv, x0, frac);
+    } else {
+      x0[0] = x0[1] = ~0u;
+      frac[0] = frac[1] = 0.0f;
+    }
+    corners<2>(x0, frac, lv, hash_mask, hash_add != 0, row, w);
+    float2 v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      v[c] = make_float2(__fmul_rn(w[c], g.x), __fmul_rn(w[c], g.y));
+    }
+    const unsigned peers =
+        __match_any_sync(kFull, ((unsigned long long)x0[1] << 32) | x0[0]);
+    reduce_peers(peers, v);
+    // The group's lowest lane adds, unless every lane of it was zero.
+    if ((peers & ((1u << lane) - 1u)) != 0u || (nz_lanes & peers) == 0u) {
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      atomicAdd(&acc[row[c]].x, v[c].x);
+      atomicAdd(&acc[row[c]].y, v[c].y);
+    }
+  }
+  __syncthreads();
+  // Levels hold a multiple of 8 rows and start on a multiple of 8, so the
+  // pairs are whole and 16-byte aligned in both copies.
+  const float4* acc4 = reinterpret_cast<const float4*>(acc);
+  float4* grad4 = reinterpret_cast<float4*>(grad);
+  for (uint32_t r = threadIdx.x; r < lv.size / 2; r += kThreads) {
+    const float4 q = acc4[r];
+    if (q.x != 0.0f || q.y != 0.0f || q.z != 0.0f || q.w != 0.0f) {
+      atomicAdd(grad4 + r, q);
+    }
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
 }
@@ -330,6 +477,37 @@ void launch_bwd(const float* pos, const float* grad_out, float* grad_table,
   hashgrid_bwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       pos, (const float2*)grad_out, (float2*)grad_table, n, num_levels,
       hash_mask, hash_add, (const int4*)levels);
+}
+
+// Samples per thread: about 16 blocks per level at the mask's 16384
+// positions (4 each), up to kSpanMax at 2^19 positions and more.
+cudaError_t launch_bwd2d(const float* pos, const float* grad_out,
+                         float* grad_table, int64_t n, int num_levels,
+                         uint32_t hash_mask, int hash_add,
+                         const int32_t* levels, cudaStream_t stream) {
+  const int64_t per_block = (int64_t)kThreads * 16;
+  const int64_t want = (n + per_block - 1) / per_block;
+  const int span = (int)(want < kSpanMax ? want : kSpanMax);
+  const int64_t step = (int64_t)span * kThreads;
+  const int smem = kSharedRows * (int)sizeof(float2);
+  // Once per device (a launch is a few microseconds of host time, and the
+  // mask's is host-bound).
+  static bool attribute_set[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !attribute_set[device]) {
+    err = cudaFuncSetAttribute(hashgrid_bwd2d_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) attribute_set[device] = true;
+  }
+  const dim3 grid((unsigned int)((n + step - 1) / step), num_levels);
+  hashgrid_bwd2d_kernel<<<grid, kThreads, smem, stream>>>(
+      pos, (const float2*)grad_out, (float2*)grad_table, n, num_levels,
+      hash_mask, hash_add, (const int4*)levels, span);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -370,8 +548,10 @@ extern "C" int hashgrid_bwd(const float* pos, const float* grad_out,
     launch_bwd<3>(pos, grad_out, grad_table, n, num_levels, hash_mask,
                   hash_add, levels, s);
   } else {
-    launch_bwd<2>(pos, grad_out, grad_table, n, num_levels, hash_mask,
-                  hash_add, levels, s);
+    const cudaError_t err = launch_bwd2d(pos, grad_out, grad_table, n,
+                                         num_levels, hash_mask, hash_add,
+                                         levels, s);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -7,16 +7,18 @@ the semantics.
 
 On CUDA tensors the forward is a hand-written kernel of csrc/fused_mlp.cu,
 which keeps the hidden activations on chip; on CPU tensors it is the plain
-version below. In bf16 the C entry point routes by widths alone: where
-`resident_plan` fits (every MLP of the shipped configs) the resident
+version below. The C entry point routes by dtype and widths alone. In bf16,
+where `resident_plan` fits (every MLP of the shipped configs) the resident
 kernel (weights held in shared memory for the whole launch, wgmma,
-activations in registers) reads the weights as they are; elsewhere, and in
-fp32, the streamed kernel reads the zero-padded copies of
-`kernel_weights`. The wrapper counts every launch (`launches`) and the
-bf16 ones by design (`launches_resident`, `launches_streamed`). The
-backward recomputes the activations and runs plain matmuls, line for line
-the JAX custom VJP (`_fused_mlp_bwd`), which computes it with XLA outside
-any Pallas kernel.
+activations in registers) reads the weights as they are; elsewhere the
+streamed kernel reads the zero-padded copies of `streamed_weights`. In
+fp32 one kernel (exact FMAs on 8x8 register tiles, one activation buffer
+updated in place) reads the weights as they are, holding in shared memory
+the layers `f32_plan` makes resident and streaming the rest. The wrapper
+counts every launch (`launches`) and each kernel's (`launches_resident`,
+`launches_streamed`, `launches_f32`). The backward recomputes the
+activations and runs plain matmuls, line for line the JAX custom VJP
+(`_fused_mlp_bwd`), which computes it with XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The resident kernel's plan (csrc/fused_mlp.cu make_resident_plan).
 SMEM_BUDGET = 232448   # kSmemBudget: the shared memory a block may have
 MAX_STAGES = 8         # kMaxStages: input tiles in flight per warpgroup
+# The fp32 kernel's plan (csrc/fused_mlp.cu make_f32_plan).
+F32_SLICE = 32         # kSliceF32: weight rows of a streamed slice
+F32_MAX_ROWS = 256     # kMaxRowsF32
+HALF_SMEM = 115712     # kHalfSmem: shared memory of one of two blocks an SM
 
 
 def fused_mlp_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]
@@ -125,24 +131,75 @@ def _resident_plan(dims: Tuple[int, ...]) -> Optional[dict]:
 
 
 def is_resident(dtype: torch.dtype, dims: Sequence[int]) -> bool:
-    """Whether the C entry point runs these widths on the resident kernel."""
+    """Whether the C entry point runs these widths on the resident bf16
+    kernel."""
     return dtype == torch.bfloat16 and resident_plan(dims) is not None
 
 
+def f32_plan(dims: Sequence[int]) -> dict:
+    """The fp32 kernel's plan for layer widths `dims`: the threads of a
+    block and the blocks an SM (256 threads two or one an SM where every
+    layer stays resident in shared memory; 512 where layers stream through
+    a two-stage ring of 32-row slices), the row tile (at most 64 sums a
+    thread at the widest layer), which layers stay resident, and the
+    shared bytes. The rule of csrc/fused_mlp.cu make_f32_plan. Cached per
+    widths; do not modify the result."""
+    return _f32_plan(tuple(dims))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_plan(dims: Tuple[int, ...]) -> dict:
+    k_pad = [_round_up(d, 4) for d in dims[:-1]]
+    n_cov = [_round_up(d, 8) for d in dims[1:]]
+    w_bytes = [4 * k * c for k, c in zip(k_pad, n_cov)]
+    astride = _round_up(max(dims), 4) + 4
+    act = lambda m: 4 * m * astride
+    top = lambda threads: min(64 * threads // max(n_cov) // 8 * 8,
+                              F32_MAX_ROWS)
+
+    def plan(threads, rows, bps, resident, ring_stage):
+        return {"threads": threads, "rows": rows, "blocks_per_sm": bps,
+                "resident": resident, "k_pad": k_pad, "n_cov": n_cov,
+                "astride": astride, "ring_stage": ring_stage,
+                "smem_bytes": sum(b for b, r in zip(w_bytes, resident) if r)
+                + act(rows) + 2 * ring_stage,
+                "slices": sum(-(-k // F32_SLICE) for k, r
+                              in zip(k_pad, resident) if not r)}
+
+    # Every layer resident: 256 threads, two blocks an SM with the tile
+    # down to half of the tallest, else one block at any height.
+    m = top(256)
+    while m >= 8 and 2 * m >= top(256):
+        if sum(w_bytes) + act(m) <= HALF_SMEM:
+            return plan(256, m, 2, [True] * len(k_pad), 0)
+        m = m // 2 // 8 * 8
+    m = top(256)
+    while m >= 8:
+        if sum(w_bytes) + act(m) <= SMEM_BUDGET:
+            return plan(256, m, 1, [True] * len(k_pad), 0)
+        m = m // 2 // 8 * 8
+    ring = 2 * F32_SLICE * max(n_cov) * 4
+    m = top(512)
+    while m > 8 and act(m) + ring > SMEM_BUDGET:
+        m = m // 2 // 8 * 8
+    resident, off = [], 0
+    for b in w_bytes:
+        resident.append(off + b + act(m) + ring <= SMEM_BUDGET)
+        off += b if resident[-1] else 0
+    stage = F32_SLICE * 4 * max((c for c, r in zip(n_cov, resident)
+                                 if not r), default=0)
+    return plan(512, m, 1, resident, stage)
+
+
 def streamed_weights(weights: Sequence[torch.Tensor]) -> list:
-    """Zero-padded copies of the weights in the streamed kernel's slice
-    layout (csrc/fused_mlp.cu Mlp::w): bf16 W^T as [round_up(d_out, 64),
-    round_up(d_in, 64)], fp32 W as [round_up(d_in, 32), round_up(d_out,
-    64)], so every weight slice it copies is whole."""
+    """Zero-padded copies of bf16 weights in the streamed bf16 kernel's
+    slice layout (csrc/fused_mlp.cu Mlp::w): W^T as [round_up(d_out, 64),
+    round_up(d_in, 64)], so every weight slice it copies is whole."""
     out = []
     for w in weights:
         k, n = w.shape
-        if w.dtype == torch.bfloat16:
-            p = w.new_zeros(_round_up(n, 64), _round_up(k, 64))
-            p[:n, :k] = w.t()
-        else:
-            p = w.new_zeros(_round_up(k, 32), _round_up(n, 64))
-            p[:k, :n] = w
+        p = w.new_zeros(_round_up(n, 64), _round_up(k, 64))
+        p[:n, :k] = w.t()
         out.append(p)
     return out
 
@@ -150,11 +207,13 @@ def streamed_weights(weights: Sequence[torch.Tensor]) -> list:
 def kernel_weights(weights: Sequence[torch.Tensor]) -> list:
     """The weights as the C entry point reads them for their widths and
     dtype: as the caller holds them, [d_in, d_out] with no copy, on the
-    resident kernel; `streamed_weights` otherwise."""
+    fp32 and the resident bf16 kernels; `streamed_weights` on the streamed
+    bf16 kernel."""
     dims = [w.shape[0] for w in weights] + [weights[-1].shape[1]]
-    if is_resident(weights[0].dtype, dims):
-        return list(weights)
-    return streamed_weights(weights)
+    if weights[0].dtype == torch.bfloat16 and not is_resident(
+            torch.bfloat16, dims):
+        return streamed_weights(weights)
+    return list(weights)
 
 
 def launch(lib, x: torch.Tensor, kernel_ws: Sequence[torch.Tensor],
@@ -165,11 +224,11 @@ def launch(lib, x: torch.Tensor, kernel_ws: Sequence[torch.Tensor],
     ptrs = (ctypes.c_void_p * len(kernel_ws))(
         *[w.data_ptr() for w in kernel_ws])
     dims_c = (ctypes.c_int32 * len(dims))(*dims)
-    with torch.cuda.device(x.device):
+    with kernels.on_device(x.device):
         status = lib.fused_mlp_fwd(
             x.data_ptr(), ptrs, dims_c, len(kernel_ws), x.shape[0],
             out.data_ptr(), _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(status, "fused_mlp_fwd")
 
 
@@ -189,9 +248,11 @@ def fused_mlp_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor]
         return out
     launch(kernels.load(), x, kernel_weights(weights), dims, out)
     fused_mlp_fwd.launches += 1
-    if is_resident(x.dtype, dims):
+    if x.dtype == torch.float32:
+        fused_mlp_fwd.launches_f32 += 1
+    elif is_resident(x.dtype, dims):
         fused_mlp_fwd.launches_resident += 1
-    elif x.dtype == torch.bfloat16:
+    else:
         fused_mlp_fwd.launches_streamed += 1
     return out
 
@@ -199,6 +260,7 @@ def fused_mlp_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor]
 fused_mlp_fwd.launches = 0            # every launch
 fused_mlp_fwd.launches_resident = 0   # bf16 on the resident kernel
 fused_mlp_fwd.launches_streamed = 0   # bf16 on the streamed kernel
+fused_mlp_fwd.launches_f32 = 0        # fp32
 
 
 class _FusedMLP(torch.autograd.Function):

@@ -20,13 +20,16 @@ joined by one autograd.Function; on CPU tensors the same Function runs
 their plain PyTorch versions. The kernels take d = 3 (the nerfacto fields)
 and d = 2 (the HA-NeRF implicit mask); each wrapper counts the launches of
 its two instantiations apart, `launches` for d = 3 and `launches_2d` for
-d = 2. Positions get no gradient, as in the JAX custom VJP: every caller
+d = 2. What a spec derives (scales, level sizes and offsets, the kernels'
+level table and spec checks) is computed once per spec (`grid_constants`,
+`kernel_spec_args`): a wrapper call pays only its tensor checks. Positions get no gradient, as in the JAX custom VJP: every caller
 feeds positions drawn without gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -51,13 +54,6 @@ def level_scales(num_levels: int, base_res: int, max_res: int) -> np.ndarray:
         np.float32)
 
 
-def level_resolutions(num_levels: int, base_res: int, max_res: int
-                      ) -> np.ndarray:
-    """tcnn's N_l = ceil(scale_l) + 1 (grid.h `grid_resolution`)."""
-    scales = level_scales(num_levels, base_res, max_res)
-    return (np.ceil(scales.astype(np.float64)) + 1).astype(np.int64)
-
-
 @dataclasses.dataclass(frozen=True)
 class HashGridSpec:
     num_levels: int = 16
@@ -80,26 +76,28 @@ class HashGridSpec:
         """Hashed-level table size (the 2^log2 cap)."""
         return 1 << self.log2_hashmap_size
 
+    # What the levels derive from the fields, computed once per spec by
+    # grid_constants (read-only arrays, shared by every caller).
     @property
     def scales(self) -> np.ndarray:
-        return level_scales(self.num_levels, self.base_res, self.max_res)
+        """tcnn's per-level grid scale (float32)."""
+        return grid_constants(self).scales
 
     @property
     def resolutions(self) -> np.ndarray:
-        return level_resolutions(self.num_levels, self.base_res, self.max_res)
+        """tcnn's N_l = ceil(scale_l) + 1 (grid.h `grid_resolution`)."""
+        return grid_constants(self).resolutions
 
     @property
     def level_sizes(self) -> np.ndarray:
         """Per-level rows: min(N_l^d, 2^log2) rounded up to a multiple of 8."""
-        dense_size = self.resolutions.astype(np.int64) ** self.num_dims
-        sizes = np.minimum(dense_size, self.table_size)
-        return -(-sizes // 8) * 8
+        return grid_constants(self).level_sizes
 
     @property
     def level_offsets(self) -> np.ndarray:
         """First row of each level in the concatenated table (multiples
         of 8, since every level size is)."""
-        return np.concatenate([[0], np.cumsum(self.level_sizes)[:-1]])
+        return grid_constants(self).level_offsets
 
     @property
     def output_dim(self) -> int:
@@ -107,7 +105,7 @@ class HashGridSpec:
 
     @property
     def num_rows(self) -> int:
-        return int(self.level_sizes.sum())
+        return grid_constants(self).num_rows
 
     def corner_offsets(self) -> np.ndarray:
         """[2^d, d] binary corner offsets, dim 0 most significant."""
@@ -117,18 +115,48 @@ class HashGridSpec:
 
     def dense_level(self) -> np.ndarray:
         """Per level: dense indexing while N_l^d entries fit the cap."""
-        return (self.resolutions.astype(np.int64) ** self.num_dims
-                <= self.table_size)
+        return grid_constants(self).dense
 
     def level_multipliers(self) -> np.ndarray:
         """[L, d] per-dim index multipliers: N_l^d on dense levels, the
         tcnn primes on hashed ones."""
-        res = self.resolutions.astype(np.int64)
-        dense = self.dense_level()
-        mult = np.empty((self.num_levels, self.num_dims), np.int64)
-        for d in range(self.num_dims):
-            mult[:, d] = np.where(dense, res ** d, _PRIMES[d % len(_PRIMES)])
-        return mult
+        return grid_constants(self).multipliers
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GridConstants:
+    """What a spec derives (`grid_constants`): the per-level arrays,
+    read-only, and the sizes the wrappers and kernels take."""
+    scales: np.ndarray          # [L] float32
+    resolutions: np.ndarray     # [L] int64 N_l
+    level_sizes: np.ndarray     # [L] int64 rows
+    level_offsets: np.ndarray   # [L] int64 first rows
+    dense: np.ndarray           # [L] bool
+    multipliers: np.ndarray     # [L, d] int64
+    num_rows: int
+    hash_mask: int
+    hash_add: int
+
+
+@functools.lru_cache(maxsize=None)
+def grid_constants(spec: HashGridSpec) -> GridConstants:
+    """The spec's derived constants, computed once per spec (HashGridSpec
+    is frozen and hashable) from one level_scales call: the kernels'
+    wrappers read them at every launch."""
+    scales = level_scales(spec.num_levels, spec.base_res, spec.max_res)
+    res = (np.ceil(scales.astype(np.float64)) + 1).astype(np.int64)
+    dense_size = res ** spec.num_dims
+    dense = dense_size <= spec.table_size
+    sizes = -(-np.minimum(dense_size, spec.table_size) // 8) * 8
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    mult = np.stack([np.where(dense, res ** d, _PRIMES[d % len(_PRIMES)])
+                     for d in range(spec.num_dims)], -1).astype(np.int64)
+    arrays = (scales, res, sizes, offsets, dense, mult)
+    for a in arrays:
+        a.setflags(write=False)
+    return GridConstants(*arrays, num_rows=int(sizes.sum()),
+                         hash_mask=spec.table_size - 1,
+                         hash_add=int(spec.hash_impl == "add"))
 
 
 def level_table(spec: HashGridSpec) -> np.ndarray:
@@ -136,12 +164,13 @@ def level_table(spec: HashGridSpec) -> np.ndarray:
     scale bits, three multipliers, rows, row offset, dense flag, pad."""
     if spec.num_dims not in KERNEL_DIMS:
         raise ValueError("the kernels take 2 or 3 dims")
+    c = grid_constants(spec)
     tab = np.zeros((spec.num_levels, 8), np.uint32)
-    tab[:, 0] = spec.scales.astype(np.float32).view(np.uint32)
-    tab[:, 1:1 + spec.num_dims] = spec.level_multipliers() % (1 << 32)
-    tab[:, 4] = spec.level_sizes
-    tab[:, 5] = spec.level_offsets
-    tab[:, 6] = spec.dense_level()
+    tab[:, 0] = c.scales.astype(np.float32).view(np.uint32)
+    tab[:, 1:1 + spec.num_dims] = c.multipliers % (1 << 32)
+    tab[:, 4] = c.level_sizes
+    tab[:, 5] = c.level_offsets
+    tab[:, 6] = c.dense
     return tab.view(np.int32)
 
 
@@ -161,14 +190,15 @@ def corner_rows_level(spec: HashGridSpec, pos: torch.Tensor, lvl: int):
     order. Integer math in int64 keeps the low 32 bits of tcnn's uint32
     products, which is all the mask or the dense wrap reads."""
     d_dims = spec.num_dims
-    x = pos * float(spec.scales[lvl]) + 0.5
+    c = grid_constants(spec)
+    x = pos * float(c.scales[lvl]) + 0.5
     x0f = torch.floor(x)
     frac = x - x0f
     x0 = x0f.long()
-    mult = spec.level_multipliers()[lvl]
-    dense = bool(spec.dense_level()[lvl])
+    mult = c.multipliers[lvl]
+    dense = bool(c.dense[lvl])
     additive = dense or spec.hash_impl == "add"
-    size = int(spec.level_sizes[lvl])
+    size = int(c.level_sizes[lvl])
     rows, weights = [], []
     for c in spec.corner_offsets():
         idx, w = None, None
@@ -199,7 +229,7 @@ def hashgrid_encode_plain(table: torch.Tensor, positions: torch.Tensor,
     pos = positions.reshape(-1, spec.num_dims)
     f = spec.features_per_level
     tab = table.view(-1, f)
-    offsets = spec.level_offsets
+    offsets = grid_constants(spec).level_offsets
     outs = []
     for lvl in range(spec.num_levels):
         rows, weights = corner_rows_level(spec, pos, lvl)
@@ -222,12 +252,29 @@ def check_devices(**tensors: torch.Tensor) -> None:
         device = t.device
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_spec_args(spec: HashGridSpec) -> Tuple[int, int, int, int, int]:
+    """(num_rows, num_levels, num_dims, hash_mask, hash_add) of a spec the
+    kernels take, checked once per spec; raises on one they do not."""
+    if spec.features_per_level != 2:
+        raise ValueError("the kernels take features_per_level == 2")
+    if spec.num_dims not in KERNEL_DIMS:
+        raise ValueError(f"the kernels take 2 or 3 dims, got "
+                         f"{spec.num_dims}")
+    c = grid_constants(spec)
+    if c.num_rows >= 1 << 31:
+        raise ValueError("table rows must fit int32")
+    return c.num_rows, spec.num_levels, spec.num_dims, c.hash_mask, \
+        c.hash_add
+
+
 def check_kernel_args(spec: HashGridSpec, aligned: Tuple[str, ...] = (),
-                      **tensors: torch.Tensor) -> None:
+                      **tensors: torch.Tensor) -> Tuple[int, ...]:
     """Dtype, contiguity, alignment and spec checks of the kernels'
-    arguments. The tensors named in `aligned` (the table, the table
-    gradient) are read or added as 16-byte row pairs, so they must start on
-    16 bytes: a view from an odd row would fault on the card."""
+    arguments; returns `kernel_spec_args(spec)`. The tensors named in
+    `aligned` (the table, the table gradient) are read or added as 16-byte
+    row pairs, so they must start on 16 bytes: a view from an odd row would
+    fault on the card. The spec's checks run once per spec."""
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
@@ -235,28 +282,22 @@ def check_kernel_args(spec: HashGridSpec, aligned: Tuple[str, ...] = (),
             raise ValueError(f"{name} must be contiguous")
         if name in aligned and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if spec.features_per_level != 2:
-        raise ValueError("the kernels take features_per_level == 2")
-    if spec.num_dims not in KERNEL_DIMS:
-        raise ValueError(f"the kernels take 2 or 3 dims, got "
-                         f"{spec.num_dims}")
-    if spec.num_rows >= 1 << 31:
-        raise ValueError("table rows must fit int32")
+    return kernel_spec_args(spec)
 
 
 def launch_encode(lib, table: torch.Tensor, positions: torch.Tensor,
                   out: torch.Tensor, spec: HashGridSpec) -> None:
     """One call of a kernel library's `hashgrid_fwd` into `out`; raises on
     bad arguments or a launch error."""
-    check_kernel_args(spec, aligned=("table",), table=table,
-                      positions=positions, out=out)
-    with torch.cuda.device(table.device):
+    _, levels, dims, mask, add = check_kernel_args(
+        spec, aligned=("table",), table=table, positions=positions, out=out)
+    device = table.device
+    with kernels.on_device(device):
         status = lib.hashgrid_fwd(
             table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            positions.numel() // spec.num_dims, spec.num_levels,
-            spec.num_dims, spec.table_size - 1, int(spec.hash_impl == "add"),
-            device_level_table(spec, table.device).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            positions.numel() // dims, levels, dims, mask, add,
+            device_level_table(spec, device).data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     kernels.check(status, "hashgrid_fwd")
 
 
@@ -268,9 +309,10 @@ def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
         with torch.no_grad():
             return hashgrid_encode_plain(table, positions, spec)
     check_devices(table=table, positions=positions)
-    if table.numel() != spec.num_rows * spec.features_per_level:
+    values = grid_constants(spec).num_rows * spec.features_per_level
+    if table.numel() != values:
         raise ValueError(f"table has {table.numel()} values, spec needs "
-                         f"{spec.num_rows * spec.features_per_level}")
+                         f"{values}")
     if positions.shape[-1] != spec.num_dims:
         raise ValueError(f"positions must end in {spec.num_dims} dims")
     out = torch.empty(positions.shape[:-1] + (spec.output_dim,),

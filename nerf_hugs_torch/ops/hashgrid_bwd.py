@@ -7,7 +7,9 @@ workaround for its slow scatter. Here the CUDA kernel (csrc/hashgrid.cu,
 positions and adds w * dL/dfeature into the fp32 gradient: level-major, with
 a warp's same-cell payloads summed before one float2 atomic, a float4 atomic
 for an aligned pair of x-corner rows, and nothing issued for a zero
-dL/dfeature. The plain version does the same with `index_add_`.
+dL/dfeature. At d = 2 a block takes a span of samples at one level and sums
+the coarse dense levels in shared memory, one atomic per row pair a block.
+The plain version does the same with `index_add_`.
 
 The payload stays fp32: this is the JAX package's `bwd_dtype='float32'`
 mode, not its bf16 default (ROADMAP.md Queue 3).
@@ -21,7 +23,7 @@ from nerf_hugs_torch.ops import kernels
 from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_devices,
                                           check_kernel_args, count_launch,
                                           corner_rows_level,
-                                          device_level_table)
+                                          device_level_table, grid_constants)
 
 
 def hashgrid_table_grad_plain(positions: torch.Tensor, grad_out: torch.Tensor,
@@ -31,9 +33,10 @@ def hashgrid_table_grad_plain(positions: torch.Tensor, grad_out: torch.Tensor,
     f = spec.features_per_level
     pos = positions.reshape(-1, spec.num_dims)
     g = grad_out.reshape(-1, spec.num_levels, f).float()
-    out = torch.zeros(spec.num_rows, f, dtype=torch.float32,
+    constants = grid_constants(spec)
+    out = torch.zeros(constants.num_rows, f, dtype=torch.float32,
                       device=positions.device)
-    offsets = spec.level_offsets
+    offsets = constants.level_offsets
     for lvl in range(spec.num_levels):
         rows, weights = corner_rows_level(spec, pos, lvl)        # [2^d, n]
         vals = weights[..., None] * g[None, :, lvl, :]           # [2^d, n, F]
@@ -46,15 +49,16 @@ def launch_table_grad(lib, positions: torch.Tensor, grad_out: torch.Tensor,
                       grad_table: torch.Tensor, spec: HashGridSpec) -> None:
     """One call of a kernel library's `hashgrid_bwd`, adding into the zeroed
     `grad_table`; raises on bad arguments or a launch error."""
-    check_kernel_args(spec, aligned=("grad_table",), positions=positions,
-                      grad_out=grad_out, grad_table=grad_table)
-    with torch.cuda.device(positions.device):
+    _, levels, dims, mask, add = check_kernel_args(
+        spec, aligned=("grad_table",), positions=positions,
+        grad_out=grad_out, grad_table=grad_table)
+    device = positions.device
+    with kernels.on_device(device):
         status = lib.hashgrid_bwd(
             positions.data_ptr(), grad_out.data_ptr(), grad_table.data_ptr(),
-            positions.numel() // spec.num_dims, spec.num_levels,
-            spec.num_dims, spec.table_size - 1, int(spec.hash_impl == "add"),
-            device_level_table(spec, positions.device).data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            positions.numel() // dims, levels, dims, mask, add,
+            device_level_table(spec, device).data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     kernels.check(status, "hashgrid_bwd")
 
 
@@ -70,7 +74,8 @@ def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
             or grad_out.numel() != n * spec.output_dim:
         raise ValueError(f"positions {tuple(positions.shape)} and grad_out "
                          f"{tuple(grad_out.shape)} do not match the spec")
-    grad_table = torch.zeros(spec.num_rows * spec.features_per_level,
+    grad_table = torch.zeros(grid_constants(spec).num_rows
+                             * spec.features_per_level,
                              dtype=torch.float32, device=positions.device)
     launch_table_grad(kernels.load(), positions, grad_out, grad_table, spec)
     if n:

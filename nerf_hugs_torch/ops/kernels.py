@@ -10,6 +10,7 @@ the CPU tests import every module on machines without nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -104,6 +105,8 @@ def load() -> types.SimpleNamespace:
     """Build (once per source) and dlopen every kernel library; returns the
     entry points of SIGNATURES as attributes."""
     global _lib, build_seconds
+    if _lib is not None:  # every launch asks: no lock once built
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -123,6 +126,19 @@ def load() -> types.SimpleNamespace:
         build_seconds = time.perf_counter() - t0
         _lib = types.SimpleNamespace(**fns)
         return _lib
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(device):
+    """A context that makes `device` the current CUDA device for a launch:
+    nothing where it already is (the usual case, and the cheap one on the
+    host's launch path), torch.cuda.device otherwise."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
 
 
 def check(status: int, name: str) -> None:

@@ -6,6 +6,8 @@ train step of several checkouts.
         [--baseline OLD_HASHGRID_CU] [--captured] [--out JSON]
     python -m nerf_hugs_torch.tools.bench_hashgrid train ROOT [ROOT ...] \\
         [--steps 48] [--runs RUN [RUN ...]] [--profile] [--out JSON]
+    python -m nerf_hugs_torch.tools.bench_hashgrid wrappers ROOT [ROOT ...] \\
+        [--out JSON]
 
 `kernels` loads the package's kernels (ops/kernels.py) and, with
 --baseline, builds the given hashgrid.cu with the same nvcc flags into a
@@ -13,14 +15,30 @@ scratch library (for example the parent commit's, unpacked with
 `git archive`). On the field's and the proposal's grids of
 kubric_nerfacto_base it times each build's forward and table gradient
 (gradient zeroing included, as the wrapper does) on uniform positions of
-the main path's [16384, samples per ray, 3] shapes and, with --captured,
-on the positions and output gradients the full-width model hands its
-encoders in one batch of compute_loss + backward
-(hashgrid_inputs.capture_hashgrid_inputs). Every build's outputs are first
-checked against the plain versions (forward within 1e-6 absolute, table
-gradient within 1e-5 of its largest entry). Each reading is a median of 10
-CUDA-event runs; the builds are timed in turns, A B B A three times, six
-readings each.
+the main path's [16384, samples per ray, 3] shapes, and on HA-NeRF's 2-D
+mask grid (models/nerfacto.py MASK_GRID) at its 16384 pixel centres of
+16x16 patches (one position per ray) and at 2^20 uniform positions; with
+--captured also on the positions and output gradients the full-width
+models hand their encoders in one batch of compute_loss + backward
+(hashgrid_inputs.capture_hashgrid_inputs: kubric_nerfacto_base's field and
+proposal, distractor_nerfacto_hanerf's mask on a written distractor
+capture). Every build's outputs are first checked against the plain
+versions (forward within 1e-6 absolute, table gradient within 1e-5 of its
+largest entry). Each wrapper reading is a median of 10 CUDA-event runs
+around one wrapper call (the host's launch path included); the builds are
+timed in turns, A B B A three times, six readings each. Then each
+kernel alone, the mean device time of 20 calls from a torch.profiler
+trace; the library yardsticks (`yardsticks`: embedding_bag and
+index_add_ on the corner rows and weights computed beforehand); and the
+bounds (`bounds`).
+
+`wrappers` times, in a process importing each checkout ROOT in the order
+given (e.g. parent, change, change, parent), that checkout's own wrappers
+`hashgrid_fwd` and `hashgrid_table_grad` (its host path and its kernels)
+on the same inputs, made from a seed: HA-NeRF's mask grid at its 16384
+pixel centres and at 2^20 uniform positions, and kubric_nerfacto_base's
+field and proposal grids on uniform positions of their main-path shapes;
+each reading a median of 10 CUDA-event runs around one call.
 
 `train` runs `python -m nerf_hugs_torch.train` from each checkout ROOT in
 the order given (e.g. parent, change, change, parent), once per RUN in the
@@ -65,6 +83,9 @@ from nerf_hugs_torch.ops import hashgrid, hashgrid_bwd, kernels
 from nerf_hugs_torch.tools import hashgrid_inputs
 
 RUNS = 10
+# NVIDIA H100 SXM data sheet: memory rate and the fp32 FMA peak.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
 
 
 def build_baseline(src: str, tmp: str,
@@ -86,6 +107,71 @@ def build_baseline(src: str, tmp: str,
         fn.argtypes = kernels.SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
+
+
+def yardsticks(spec, table, p, g):
+    """One PyTorch call for each kernel's function, fed the corner rows
+    and weights computed here (outside any timing): (embedding_bag with
+    per-sample weights for the forward's weighted gather, index_add_ into
+    a zeroed gradient for the table gradient's scatter, the number of
+    distinct table rows the samples touch)."""
+    pos = p.reshape(-1, spec.num_dims)
+    offsets = hashgrid.grid_constants(spec).level_offsets
+    rows, weights = [], []
+    for lvl in range(spec.num_levels):
+        r, w = hashgrid.corner_rows_level(spec, pos, lvl)
+        rows.append(r.t() + int(offsets[lvl]))
+        weights.append(w.t())
+    corners = 2 ** spec.num_dims
+    rows = torch.stack(rows, 1).reshape(-1, corners)        # [n * L, 2^d]
+    weights = torch.stack(weights, 1).reshape(-1, corners)
+    f = spec.features_per_level
+    tab = table.view(-1, f)
+    keys = rows.reshape(-1)
+    vals = (weights[..., None] * g.reshape(-1, 1, f)).reshape(-1, f)
+    fwd = lambda: torch.nn.functional.embedding_bag(
+        rows, tab, per_sample_weights=weights, mode="sum")
+    bwd = lambda: torch.zeros_like(tab).index_add_(0, keys, vals)
+    return fwd, bwd, int(torch.unique(keys).numel())
+
+
+def bounds(spec, table, p, g, rows_touched: int):
+    """((ms, set by, bytes) of the forward, the same of the table
+    gradient): the least time the card could take, the larger of the
+    bytes over the memory rate and the fp32 operations over the FMA peak.
+    Each kernel reads the positions and the [n, L*F] array (output
+    gradient) or writes it (features) once; the forward reads the table
+    rows these samples touch, the table gradient writes the whole table.
+    Per sample and level the work is (d - 1) products for each of the 2^d
+    corner weights and 4 operations per corner of the weighted sums."""
+    n = p.numel() // spec.num_dims
+    flops = (spec.num_dims - 1 + 4) * 2 ** spec.num_dims * n \
+        * spec.num_levels
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
+    row_bytes = spec.features_per_level * table.element_size()
+    out = []
+    for nbytes in (size(p, g) + rows_touched * row_bytes,
+                   size(p, g, table)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        out.append((t_bytes, "bytes", nbytes) if t_bytes >= t_ops
+                   else (t_ops, "operations", nbytes))
+    return tuple(out)
+
+
+def device_ms(fn, kernel: str, runs: int = 20):
+    """Mean device ms per call of `fn` of the CUDA kernels whose name holds
+    `kernel`, from a torch.profiler trace (None if it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if kernel in e.key)
+    return total / runs / 1e3 if total > 0 else None
 
 
 def runners(lib):
@@ -121,21 +207,35 @@ def median_ms(fn) -> float:
 
 
 def input_sets(captured: bool, tmp: str):
-    """[(label, spec, positions, grad_out)] at kubric_nerfacto_base."""
+    """[(label, spec, positions, grad_out)] at kubric_nerfacto_base's
+    grids and HA-NeRF's mask grid."""
+    from nerf_hugs_torch.models.nerfacto import MASK_GRID
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = hashgrid_inputs.BATCH
     sets = []
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     for name, kw, n_main in hashgrid_inputs.GRIDS[:2]:
         spec = hashgrid.HashGridSpec(**kw)
         shape = (batch, n_main // batch)
         sets.append((f"{name} uniform", spec,
                      torch.rand(shape + (3,), generator=gen, device="cuda"),
-                     torch.randn(shape + (spec.output_dim,), generator=gen,
-                                 device="cuda")))
+                     randn(*shape, spec.output_dim)))
+    n_mask = hashgrid_inputs.MASK_N
+    sets.append(("mask pixel centres", MASK_GRID,
+                 hashgrid_inputs.pixel_centres(gen, n_mask),
+                 randn(n_mask, MASK_GRID.output_dim)))
+    sets.append(("mask 2^20 uniform", MASK_GRID,
+                 torch.rand((1 << 20, 2), generator=gen, device="cuda"),
+                 randn(1 << 20, MASK_GRID.output_dim)))
     if captured:
         inputs = hashgrid_inputs.capture_hashgrid_inputs(
             hashgrid_inputs.base_yaml(tmp, fused=False), tmp, "cuda")
-        for name in ("field", "proposal"):
+        scene = hashgrid_inputs.write_colmap_scene(
+            os.path.join(tmp, "distractor"), "distractor")
+        inputs.update(hashgrid_inputs.capture_hashgrid_inputs(
+            hashgrid_inputs.shipped_yaml(tmp, "distractor_nerfacto_hanerf"),
+            scene, "cuda", ("mask",)))
+        for name in ("field", "proposal", "mask"):
             spec, p, g = inputs[name]
             print(f"capture {name}: "
                   + hashgrid_inputs.capture_shares(spec, p, g), flush=True)
@@ -174,13 +274,29 @@ def kernels_main(args) -> dict:
                     for kind, fn in (("fwd", fwd), ("bwd", bwd)):
                         times[name][kind].append(median_ms(
                             lambda: fn(spec, table, p, g)))
-            report["sets"][label] = times
+            for name, (fwd, bwd) in builds:
+                for kind, fn in (("fwd", fwd), ("bwd", bwd)):
+                    times[name][f"{kind}_alone"] = device_ms(
+                        lambda: fn(spec, table, p, g), f"hashgrid_{kind}")
+            shown = lambda v: "not measured" if v is None else f"{v:.4f}"
             for name, t in times.items():
                 print(f"{label:18s} {name:9s} fwd " + " / ".join(
-                    f"{x:.3f}" for x in t["fwd"]) + " ms   table-grad "
-                    + " / ".join(f"{x:.3f}" for x in t["bwd"]) + " ms",
-                    flush=True)
-            del table
+                    f"{x:.4f}" for x in t["fwd"]) + " ms (alone "
+                    f"{shown(t['fwd_alone'])})   table-grad " + " / ".join(
+                        f"{x:.4f}" for x in t["bwd"]) + " ms (alone "
+                    f"{shown(t['bwd_alone'])})", flush=True)
+            lib_fwd, lib_bwd, touched = yardsticks(spec, table, p, g)
+            (fb, fby, _), (bb, bby, _) = bounds(spec, table, p, g, touched)
+            times["library"] = {"fwd": median_ms(lib_fwd),
+                                "bwd": median_ms(lib_bwd)}
+            times["bound"] = {"fwd": fb, "fwd_by": fby, "bwd": bb,
+                              "bwd_by": bby}
+            print(f"{label:18s} embedding_bag {times['library']['fwd']:.4f} "
+                  f"ms, index_add_ {times['library']['bwd']:.4f} ms; bounds "
+                  f"fwd {fb:.4f} ms ({fby}), table-grad {bb:.4f} ms ({bby})",
+                  flush=True)
+            report["sets"][label] = times
+            del table, lib_fwd, lib_bwd
     return report
 
 
@@ -271,6 +387,70 @@ def profile_steps(root: str, cfg: str, data_dir: str, stage: str = "train",
                                  if "hashgrid" in k}}
 
 
+# Makes its own inputs (the same in every checkout from the seed): a
+# checkout may predate hashgrid_inputs.pixel_centres.
+WRAPPER_WORKER = r"""
+import json, statistics, torch
+from nerf_hugs_torch.ops import hashgrid, hashgrid_bwd
+from nerf_hugs_torch.models.nerfacto import MASK_GRID
+gen = torch.Generator(device="cuda").manual_seed(0)
+def pixel_centres(n, size=256, patch=16):
+    d = torch.arange(patch, device="cuda")
+    offs = torch.stack(torch.meshgrid(d, d, indexing="xy"), -1).reshape(-1, 2)
+    corner = torch.randint(0, size - patch + 1, (n // patch ** 2, 1, 2),
+                           generator=gen, device="cuda")
+    return ((corner + offs).reshape(-1, 2).float() + 0.5) / size
+def median_ms(fn):
+    fn()
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+sets = [("mask pixel centres", MASK_GRID, pixel_centres(16384)),
+        ("mask 2^20 uniform", MASK_GRID,
+         torch.rand((1 << 20, 2), generator=gen, device="cuda"))]
+for name, kw, shape in (
+        ("field uniform", dict(num_levels=16, log2_hashmap_size=21,
+                               base_res=16, max_res=8192), (16384, 128)),
+        ("proposal uniform", dict(num_levels=7, log2_hashmap_size=17,
+                                  base_res=16, max_res=2048), (16384, 256))):
+    sets.append((name, hashgrid.HashGridSpec(**kw),
+                 torch.rand(shape + (3,), generator=gen, device="cuda")))
+out = {}
+for name, spec, p in sets:
+    table = torch.rand(spec.num_rows * 2, generator=gen, device="cuda")
+    g = torch.randn(p.shape[:-1] + (spec.output_dim,), generator=gen,
+                    device="cuda")
+    out[name] = {
+        "fwd": median_ms(lambda: hashgrid.hashgrid_fwd(table, p, spec)),
+        "bwd": median_ms(
+            lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec))}
+    del table, g
+print("WRAPPERS " + json.dumps(out))
+"""
+
+
+def wrappers_main(args) -> dict:
+    report = {"runs": []}
+    for root in args.roots:
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
+        out = subprocess.run([sys.executable, "-c", WRAPPER_WORKER],
+                             cwd=os.path.abspath(root), env=env, check=True,
+                             capture_output=True, text=True).stdout
+        times = json.loads(out.split("WRAPPERS ", 1)[1])
+        report["runs"].append({"root": root, "times": times})
+        for name, t in times.items():
+            print(f"wrappers {root} {name}: fwd {t['fwd']:.4f} ms, "
+                  f"table-grad {t['bwd']:.4f} ms", flush=True)
+    return report
+
+
 RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-distractor",
               "robustnerf-distractor", "nerfw-phototourism",
               "fused-synthetic")
@@ -351,13 +531,16 @@ def main(argv=None) -> dict:
                    default=["base-synthetic"],
                    help="configs and scenes to train, in this order")
     t.add_argument("--profile", action="store_true")
-    for p in (k, t):
+    w = sub.add_parser("wrappers")
+    w.add_argument("roots", nargs="+", help="checkouts whose wrappers to "
+                   "time, in this order")
+    for p in (k, t, w):
         p.add_argument("--out", help="write the report here as JSON")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_hashgrid needs a CUDA device")
-    report = kernels_main(args) if args.mode == "kernels" else \
-        train_main(args)
+    report = {"kernels": kernels_main, "train": train_main,
+              "wrappers": wrappers_main}[args.mode](args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

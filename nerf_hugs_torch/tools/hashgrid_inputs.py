@@ -80,15 +80,17 @@ def _cadence(steps: int) -> dict:
 
 
 def base_yaml(tmp: str, fused: bool, steps: int = 8,
-              scene: str = "synthetic") -> str:
+              scene: str = "synthetic", **base) -> str:
     """BASE_CONFIG exiting after `steps` steps (Dense MLPs, or fused for
     the field and the proposal), on the procedural scene (`synthetic`) or
-    on a scene of write_kubric_scene (`kubric`, the config's own loader);
+    on a scene of write_kubric_scene (`kubric`, the config's own loader),
+    with the base-section keys `base` on top (for example enable_amp:
+    False, which runs the MLPs in fp32, and an eval_dataset_limit);
     returns the path of the yaml written into `tmp`."""
     import yaml
     with open(BASE_CONFIG) as f:
         raw = yaml.safe_load(f)
-    raw["base"].update(_cadence(steps))
+    raw["base"].update({**_cadence(steps), **base})
     if scene == "synthetic":
         raw["base"].update({
             "dataset_type": "synthetic", "synthetic_num_images": 32,
@@ -98,7 +100,8 @@ def base_yaml(tmp: str, fused: bool, steps: int = 8,
             "synthetic_world_scale": 0.5})
     elif scene != "kubric":
         raise ValueError(f"unknown scene {scene!r}")
-    tag = "fused" if fused else "dense"
+    tag = ("fused" if fused else "dense") + (
+        "_fp32" if base.get("enable_amp") is False else "")
     if fused:
         raw["model"] = fused_overlay(raw["model"])
     cfg_path = os.path.join(tmp, f"kubric_nerfacto_base_{scene}_{tag}.yml")
@@ -200,6 +203,20 @@ def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
             Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
                 os.path.join(image_dir, f"{name}.png"))
     return root
+
+
+def pixel_centres(gen, n: int, size: int = 256, patch: int = 16):
+    """[n, 2] pix_coords of n // patch^2 random patches of patch x patch
+    neighbouring pixels in size x size images, as the patch sampler hands
+    them to the implicit mask, on gen's device."""
+    import torch
+    dev = gen.device
+    d = torch.arange(patch, device=dev)
+    offs = torch.stack(torch.meshgrid(d, d, indexing="xy"), -1).reshape(
+        -1, 2)
+    corner = torch.randint(0, size - patch + 1, (n // patch ** 2, 1, 2),
+                           generator=gen, device=dev)
+    return ((corner + offs).reshape(-1, 2).float() + 0.5) / size
 
 
 def _sphere_points(rng, radius: float, n: int):

@@ -139,24 +139,22 @@ def test_helper_init_and_kernel_argument_checks():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_weight_layout(dtype):
-    """What the kernel reads: in bf16 the resident kernel takes the weights
-    as they are (no copy); fp32, and the streamed bf16 kernel, take the
-    zero-padded slice layout, W in fp32 and W^T in bf16."""
+    """What the kernel reads: the fp32 kernel and the resident bf16 kernel
+    take the weights as they are (no copy); the streamed bf16 kernel takes
+    the zero-padded slice layout, W^T."""
     _, weights, _ = make_inputs((80, 256, 3), 1)
     ws = [as_torch(w, dtype) for w in weights]
     got = tfm.kernel_weights(ws)
-    if dtype == "bfloat16":
-        assert all(k is w for k, w in zip(got, ws))
-    streamed = tfm.streamed_weights(ws)
+    assert len(got) == len(ws) and all(k is w for k, w in zip(got, ws))
     if dtype == "float32":
-        assert [p.data_ptr() for p in got] != [w.data_ptr() for w in ws]
-        for p, q in zip(got, streamed):
-            torch.testing.assert_close(p, q, rtol=0, atol=0)
-    want_shapes = {"bfloat16": [(256, 128), (64, 256)],
-                   "float32": [(96, 256), (256, 64)]}[dtype]
-    assert [tuple(p.shape) for p in streamed] == want_shapes
+        # Even widths no block can hold take the fp32 weights as they are.
+        big = [torch.ones(256, 256)] * 8
+        assert all(k is w for k, w in zip(tfm.kernel_weights(big), big))
+        return
+    streamed = tfm.streamed_weights(ws)
+    assert [tuple(p.shape) for p in streamed] == [(256, 128), (64, 256)]
     for p, w in zip(streamed, ws):
-        w = w.t() if dtype == "bfloat16" else w
+        w = w.t()
         assert p.dtype == w.dtype and p.is_contiguous()
         torch.testing.assert_close(p[:w.shape[0], :w.shape[1]], w, rtol=0,
                                    atol=0)
@@ -265,7 +263,16 @@ KERNEL_CASES = [(dims, dtype, 2100, 0) for dims in WIDTHS
         ((14, 64, 1), 37, 0), ((80, 256, 256, 3), 4097, 1),
         ((32, 256, 65), 100, 1), ((1, 256), 129, 0), ((256, 256), 64, 0),
         ((256, 1), 65, 1), ((17, 48, 24, 5), 1000, 1), ((32,) * 9, 513, 0),
-        ((128, 256, 256, 3), 300, 1), ((256,) * 9, 200, 1))]
+        ((128, 256, 256, 3), 300, 1), ((256,) * 9, 200, 1))] + [
+    # The fp32 kernel's edges: n below one tile, ragged from row 1, widths
+    # 1, 256 and odd, 8 layers of 256 (every layer streamed), NeRF-W's
+    # transient head (two blocks an SM, K split at the output layer) and
+    # the widest head (two layers streamed).
+    (dims, "float32", n, skip) for dims, n, skip in (
+        ((14, 64, 1), 37, 0), ((80, 256, 256, 3), 4097, 1),
+        ((32, 256, 65), 100, 1), ((1, 256), 129, 0), ((256, 1), 65, 1),
+        ((17, 48, 24, 5), 1000, 1), ((256,) * 9, 200, 1),
+        ((80, 64, 64, 5), 3000, 1), ((128, 256, 256, 3), 300, 1))]
 
 
 @pytest.mark.cuda
@@ -276,13 +283,15 @@ def test_kernel_matches_plain_version(cuda, dims, dtype, n, skip):
     xt = as_torch(rows, dtype).to(cuda)[skip:]
     wt = [as_torch(w, dtype).to(cuda) for w in weights]
     fwd = tfm.fused_mlp_fwd
-    before = (fwd.launches, fwd.launches_resident, fwd.launches_streamed)
+    counters = lambda: (fwd.launches, fwd.launches_resident,
+                        fwd.launches_streamed, fwd.launches_f32)
+    before = counters()
     got = fwd(xt, wt)
     resident = tfm.is_resident(xt.dtype, dims)
     bf16 = dtype == "bfloat16"
-    assert (fwd.launches, fwd.launches_resident, fwd.launches_streamed) == (
-        before[0] + 1, before[1] + resident,
-        before[2] + (bf16 and not resident))
+    assert counters() == (before[0] + 1, before[1] + resident,
+                          before[2] + (bf16 and not resident),
+                          before[3] + (not bf16))
     want = tfm.fused_mlp_plain(xt, wt)
     torch.cuda.synchronize()
     assert got.shape == (n, dims[-1])

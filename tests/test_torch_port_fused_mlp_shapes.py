@@ -183,12 +183,137 @@ def test_gradients_match_jax_at_shipped_widths(dims):
                             TOL["bfloat16"], f"dw_{i}")
 
 
+@pytest.mark.parametrize("dims", SHIPPED)
+def test_f32_forward_matches_jax_at_shipped_widths(dims):
+    """The same widths with enable_amp off: fp32 throughout, exact
+    products (the fp32 kernel's plain version against the Pallas kernel in
+    interpret mode and the reference)."""
+    x, weights, _ = make_inputs(dims, sum(dims) + 2)
+    xj = as_jax(x, "float32")
+    wj = tuple(as_jax(w, "float32") for w in weights)
+    got = tfm.fused_mlp(as_torch(x, "float32"),
+                        [as_torch(w, "float32") for w in weights])
+    assert got.dtype == torch.float32 and got.shape == (x.shape[0],
+                                                        dims[-1])
+    for want in (jfm.fused_mlp(xj, wj, 128, True),
+                 jfm._forward_reference(xj, wj)):
+        assert_close_to_max(got, want, TOL["float32"])
+
+
+@pytest.mark.parametrize("dims", SHIPPED)
+def test_f32_gradients_match_jax_at_shipped_widths(dims):
+    x, weights, cot = make_inputs(dims, 3 * sum(dims))
+    cot_j = jnp.asarray(cot)
+
+    def loss(xx, ww):
+        return jnp.sum(jfm.fused_mlp(xx, ww, 128, True) * cot_j)
+
+    gx_j, gw_j = jax.grad(loss, argnums=(0, 1))(
+        as_jax(x, "float32"), tuple(as_jax(w, "float32") for w in weights))
+    xt = as_torch(x, "float32", requires_grad=True)
+    wt = [as_torch(w, "float32", requires_grad=True) for w in weights]
+    (tfm.fused_mlp(xt, wt) * torch.from_numpy(cot)).sum().backward()
+    assert_close_to_max(xt.grad, gx_j, TOL["float32"], "dx")
+    for i, (w, g) in enumerate(zip(wt, gw_j)):
+        assert_close_to_max(w.grad, g, TOL["float32"], f"dw_{i}")
+
+
+T, F = True, False
+# fp32 plans: (threads, row tile, blocks an SM, resident layers). At the
+# shipped widths every layer stays resident but the heads' 256 x 256 hidden
+# layers and input layers, which stream through the ring in 512-thread
+# blocks of 128 rows; the field's bases hold theirs in one 256-thread block
+# an SM. Then the edges: widths 1 and 256, odd widths, 8 layers, 8 layers
+# of 256 (every layer streamed).
+F32_PLANS = {
+    (10, 64, 1): (256, 256, 2, [T, T]), (14, 64, 1): (256, 256, 2, [T, T]),
+    (24, 256, 65): (256, 64, 1, [T, T]), (32, 256, 65): (256, 64, 1, [T, T]),
+    (80, 64, 64, 5): (256, 128, 2, [T, T, T]),
+    (80, 256, 256, 3): (512, 128, 1, [F, F, T]),
+    (84, 256, 256, 3): (512, 128, 1, [F, F, T]),
+    (128, 256, 256, 3): (512, 128, 1, [F, F, T]),
+    (1, 256): (256, 64, 2, [T]), (256, 1): (256, 128, 1, [T]),
+    (256, 256): (512, 128, 1, [F]),
+    (17, 48, 24, 5): (256, 256, 2, [T, T, T]),
+    (32,) * 9: (256, 256, 2, [T] * 8),
+    (256,) * 9: (512, 128, 1, [F] * 8)}
+
+
+def test_f32_plans_cover_the_shipped_widths():
+    assert set(SHIPPED) <= set(F32_PLANS)
+
+
+@pytest.mark.parametrize("dims", sorted(F32_PLANS, key=lambda d: (len(d), d)))
+def test_f32_plan(dims):
+    """The fp32 kernel's plan: which layers stay resident, the shared bytes
+    within 227 KB (113 KB where two blocks share an SM), a row tile whose
+    sums fit the block's registers, and no layer padded past a multiple of
+    8 columns (4 rows)."""
+    plan = tfm.f32_plan(dims)
+    assert (plan["threads"], plan["rows"], plan["blocks_per_sm"],
+            plan["resident"]) == F32_PLANS[dims]
+    assert plan["smem_bytes"] <= tfm.SMEM_BUDGET == KIB_227
+    if plan["blocks_per_sm"] == 2:
+        assert plan["smem_bytes"] <= tfm.HALF_SMEM
+    assert plan["n_cov"] == [-(-d // 8) * 8 for d in dims[1:]]
+    assert plan["k_pad"] == [-(-d // 4) * 4 for d in dims[:-1]]
+    assert plan["rows"] % 8 == 0
+    assert plan["rows"] * max(plan["n_cov"]) <= 64 * plan["threads"]
+    assert plan["astride"] >= max(plan["n_cov"]) and plan["astride"] % 4 == 0
+    streamed = [k for k, r in zip(plan["k_pad"], plan["resident"]) if not r]
+    assert plan["slices"] == sum(-(-k // tfm.F32_SLICE) for k in streamed)
+    weights = sum(4 * k * c for k, c, r in zip(
+        plan["k_pad"], plan["n_cov"], plan["resident"]) if r)
+    assert plan["smem_bytes"] == weights + 4 * plan["rows"] * \
+        plan["astride"] + 2 * plan["ring_stage"]
+    assert (plan["ring_stage"] > 0) == bool(streamed)
+    # 512 threads where layers stream, and then one block an SM (they
+    # take an SM's registers at 128 a thread).
+    assert (plan["threads"] == 512) == bool(streamed)
+    assert plan["threads"] * plan["blocks_per_sm"] <= 512
+
+
 def test_bench_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         bench_fused_mlp.main([])
     with open(bench_fused_mlp.__file__) as f:
         assert "chip_smoke" not in f.read()
+
+
+def test_bench_baseline_layouts():
+    """The baseline source's layouts: bf16 as the package reads it, fp32
+    zero-padded to the 32 x 64 slices of the earlier fp32 kernel."""
+    x, weights, _ = make_inputs((80, 256, 3), 2)
+    bf = [as_torch(w, "bfloat16") for w in weights]
+    assert all(k is w for k, w in zip(bench_fused_mlp.baseline_weights(bf),
+                                      bf))
+    f32 = [as_torch(w, "float32") for w in weights]
+    padded = bench_fused_mlp.baseline_weights(f32)
+    assert [tuple(p.shape) for p in padded] == [(96, 256), (256, 64)]
+    for p, w in zip(padded, f32):
+        torch.testing.assert_close(p[:w.shape[0], :w.shape[1]], w, rtol=0,
+                                   atol=0)
+        rest = p.clone()
+        rest[:w.shape[0], :w.shape[1]] = 0
+        assert not rest.any()  # zeros beyond the weights
+
+
+def test_bench_f32_chain_and_bound_on_the_cpu():
+    """In fp32 the chain is the plain version's function within 1e-5 and
+    the head's bound is its operations over the 67 TFLOP/s FMA peak."""
+    x, weights, _ = make_inputs((80, 256, 256, 3), 12)
+    xt = as_torch(x, "float32")
+    wt = [as_torch(w, "float32") for w in weights]
+    assert_close_to_max(bench_fused_mlp.cublas_chain(xt, wt),
+                        tfm.fused_mlp_plain(xt, wt), TOL["float32"])
+    n = 2097152
+    big = torch.empty((n, 80), device="meta")
+    out = torch.empty((n, 3), device="meta")
+    ms, by = bench_fused_mlp.bound(big, out, wt, (80, 256, 256, 3))
+    assert by == "operations"
+    assert ms == pytest.approx(2 * n * (80 * 256 + 256 * 256 + 256 * 3)
+                               / 67e12 * 1e3)
 
 
 def test_bench_chain_and_bound_on_the_cpu():

@@ -17,6 +17,7 @@ against the plain versions on the same sets and skips without a GPU, as
 chip_smoke.py does at full size.
 """
 
+import glob
 import os
 
 import jax
@@ -119,6 +120,102 @@ def test_kernel_argument_checks(case, match):
                               .view(n, 3))
 
 
+def config_grids():
+    """Every hash grid the shipped nerfacto configs build: each field's,
+    each proposal net's (the top-level hash_impl by default, as the model
+    sets it) and the HA-NeRF mask's."""
+    grids = {tnerfacto.MASK_GRID}
+    for path in glob.glob(os.path.join(REPO, "configs", "nerfacto",
+                                       "*nerfacto*.yml")):
+        nc = yaml_loader.load_yaml_config(path).nerfacto
+        grids.add(thg.HashGridSpec(
+            num_levels=nc.num_levels,
+            features_per_level=nc.features_per_level,
+            log2_hashmap_size=nc.log2_hashmap_size, base_res=nc.base_res,
+            max_res=nc.max_res, hash_impl=nc.hash_impl))
+        for args in nc.proposal_net_args_list:
+            grids.add(tnerfacto._grid_spec(
+                {"hash_impl": nc.hash_impl, **dict(args)}))
+    return sorted(grids, key=repr)
+
+
+CONFIG_GRIDS = config_grids()
+
+
+@pytest.mark.parametrize("spec", CONFIG_GRIDS, ids=repr)
+def test_grid_constants_equal_the_jax_spec(spec):
+    """The per-spec constants the wrappers and kernels read, against the
+    JAX package's HashGridSpec of the same grid (its numpy properties),
+    for every grid the shipped configs build."""
+    js = jhg.HashGridSpec(
+        num_levels=spec.num_levels,
+        features_per_level=spec.features_per_level,
+        log2_hashmap_size=spec.log2_hashmap_size, base_res=spec.base_res,
+        max_res=spec.max_res, num_dims=spec.num_dims,
+        hash_impl=spec.hash_impl, bwd_dtype="float32")
+    c = thg.grid_constants(spec)
+    np.testing.assert_array_equal(c.scales, js.scales)
+    np.testing.assert_array_equal(c.resolutions, js.resolutions)
+    np.testing.assert_array_equal(c.level_sizes, js.level_sizes)
+    np.testing.assert_array_equal(c.level_offsets, np.concatenate(
+        [[0], np.cumsum(js.level_sizes)[:-1]]))
+    np.testing.assert_array_equal(c.dense, js.dense_level())
+    primes = np.array([1, 2654435761, 805459861][:spec.num_dims])
+    np.testing.assert_array_equal(c.multipliers, np.where(
+        js.dense_level()[:, None],
+        js.resolutions[:, None].astype(np.int64)
+        ** np.arange(spec.num_dims), primes))
+    assert (c.num_rows, spec.output_dim) == (js.num_rows, js.output_dim)
+    assert (c.hash_mask, c.hash_add) == (js.table_size - 1,
+                                         int(spec.hash_impl == "add"))
+    assert c.scales.dtype == np.float32
+    # Shared by every caller of the spec, and what its properties return:
+    # read-only.
+    assert not any(a.flags.writeable for a in (
+        c.scales, c.resolutions, c.level_sizes, c.level_offsets, c.dense,
+        c.multipliers))
+    assert spec.level_offsets is c.level_offsets
+    np.testing.assert_array_equal(thg.level_table(spec)[:, 5],
+                                  c.level_offsets)
+
+
+@pytest.mark.parametrize("num_dims", [3, 2])
+def test_spec_constants_are_computed_once(monkeypatch, num_dims):
+    """The spec's properties, two preparations of the forward and gradient
+    wrappers' launches (the argument checks, the kernels' spec arguments,
+    the level table) and the plain versions derive the spec's levels once:
+    level_scales runs one time, not at every property access."""
+    spec = thg.HashGridSpec(num_levels=5, log2_hashmap_size=11, base_res=7,
+                            max_res=301, num_dims=num_dims)
+    thg.grid_constants.cache_clear()
+    thg.kernel_spec_args.cache_clear()
+    calls = []
+    real = thg.level_scales
+    monkeypatch.setattr(thg, "level_scales",
+                        lambda *a: calls.append(a) or real(*a))
+    rows = spec.num_rows
+    n = 33
+    for _ in range(2):
+        table = torch.zeros(rows * 2)
+        pos = torch.zeros(n, num_dims)
+        fwd = thg.check_kernel_args(spec, aligned=("table",), table=table,
+                                    positions=pos,
+                                    out=torch.zeros(n, spec.output_dim))
+        bwd = thg.check_kernel_args(spec, aligned=("grad_table",),
+                                    positions=pos,
+                                    grad_out=torch.zeros(n, spec.output_dim),
+                                    grad_table=torch.zeros(rows * 2))
+        thg.device_level_table(spec, "cpu")
+        assert fwd == bwd == (rows, 5, num_dims, 2047, 0)
+    assert len(calls) == 1
+    # The plain versions read the same constants.
+    thg.hashgrid_encode_plain(torch.zeros(rows * 2), torch.rand(n, num_dims),
+                              spec)
+    tbwd.hashgrid_table_grad_plain(torch.rand(n, num_dims),
+                                   torch.ones(n, spec.output_dim), spec)
+    assert len(calls) == 1
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_base_yaml_is_the_shipped_config_on_the_synthetic_scene(
         tmp_path, fused):
@@ -161,11 +258,39 @@ def test_capture_hashgrid_inputs_on_a_tiny_model(tmp_path):
 
 
 @pytest.mark.parametrize("mode", [["kernels", "--captured"],
-                                  ["train", "."]])
+                                  ["train", "."], ["wrappers", ".", "."]])
 def test_bench_without_a_card_raises(monkeypatch, mode):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         bench_hashgrid.main(mode)
+
+
+@pytest.mark.parametrize("num_dims", [3, 2])
+def test_bench_yardsticks_and_bounds_on_the_cpu(num_dims):
+    """The library calls the benchmark and the smoke run time beside the
+    kernels compute the plain versions' functions; the bounds count the
+    bytes each kernel must move."""
+    spec = thg.HashGridSpec(num_levels=4, log2_hashmap_size=10,
+                            base_res=4, max_res=64, num_dims=num_dims)
+    gen = torch.Generator().manual_seed(0)
+    table = torch.rand(spec.num_rows * 2, generator=gen)
+    p = torch.rand(N, num_dims, generator=gen)
+    g = torch.randn(N, spec.output_dim, generator=gen)
+    fwd, bwd, touched = bench_hashgrid.yardsticks(spec, table, p, g)
+    torch.testing.assert_close(fwd().view(N, -1),
+                               thg.hashgrid_encode_plain(table, p, spec),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bwd().view(-1),
+                               tbwd.hashgrid_table_grad_plain(p, g, spec),
+                               rtol=1e-5, atol=1e-6)
+    assert 0 < touched <= min(spec.num_rows, N * 2 ** num_dims * 4)
+    (f_ms, f_by, f_bytes), (b_ms, b_by, b_bytes) = bench_hashgrid.bounds(
+        spec, table, p, g, touched)
+    assert f_bytes == 4 * (p.numel() + g.numel()) + 8 * touched
+    assert b_bytes == 4 * (p.numel() + g.numel() + table.numel())
+    assert (f_by, b_by) == ("bytes", "bytes")
+    assert b_ms == pytest.approx(b_bytes / bench_hashgrid.HBM_BYTES_PER_S
+                                 * 1e3)
 
 
 def test_tools_do_not_import_the_smoke_script():

@@ -192,14 +192,24 @@ def cuda():
     return torch.device("cuda")
 
 
+# Off the path, 2^20 uniform positions: every block of a coarse level sums
+# its span of samples in shared memory before one atomic per row pair.
+UNIFORM_2D = "2^20 uniform"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("name", SETS + [UNIFORM_2D])
 def test_2d_kernels_match_plain(cuda, name):
     spec = tnerfacto.MASK_GRID
     table = torch.from_numpy(np.random.RandomState(3).randn(
         spec.num_rows * 2).astype(np.float32)).to(cuda)
-    pos, cot = (torch.from_numpy(x).to(cuda)
-                for x in inputs(name, spec, SETS.index(name)))
+    if name == UNIFORM_2D:
+        rs = np.random.RandomState(9)
+        arrays = (rs.rand(1 << 20, 2).astype(np.float32),
+                  rs.randn(1 << 20, spec.output_dim).astype(np.float32))
+    else:
+        arrays = inputs(name, spec, SETS.index(name))
+    pos, cot = (torch.from_numpy(x).to(cuda) for x in arrays)
     fwd0 = thg.hashgrid_fwd.launches_2d
     bwd0 = tbwd.hashgrid_table_grad.launches_2d
     got_f = thg.hashgrid_fwd(table, pos, spec)
