@@ -224,11 +224,12 @@ def launch(lib, x: torch.Tensor, kernel_ws: Sequence[torch.Tensor],
     ptrs = (ctypes.c_void_p * len(kernel_ws))(
         *[w.data_ptr() for w in kernel_ws])
     dims_c = (ctypes.c_int32 * len(dims))(*dims)
-    with kernels.on_device(x.device):
+    index = x.get_device()
+    with kernels.on_device(index):
         status = lib.fused_mlp_fwd(
             x.data_ptr(), ptrs, dims_c, len(kernel_ws), x.shape[0],
             out.data_ptr(), _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            kernels.current_stream(index))
     kernels.check(status, "fused_mlp_fwd")
 
 

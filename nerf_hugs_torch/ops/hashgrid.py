@@ -18,12 +18,16 @@ On CUDA tensors the encode runs the hand-written kernels of
 csrc/hashgrid.cu (forward here, table gradient in ops/hashgrid_bwd.py)
 joined by one autograd.Function; on CPU tensors the same Function runs
 their plain PyTorch versions. The kernels take d = 3 (the nerfacto fields)
-and d = 2 (the HA-NeRF implicit mask); each wrapper counts the launches of
-its two instantiations apart, `launches` for d = 3 and `launches_2d` for
-d = 2. What a spec derives (scales, level sizes and offsets, the kernels'
-level table and spec checks) is computed once per spec (`grid_constants`,
-`kernel_spec_args`): a wrapper call pays only its tensor checks. Positions get no gradient, as in the JAX custom VJP: every caller
-feeds positions drawn without gradient.
+and d = 2 (the HA-NeRF implicit mask); each wrapper counts the launches at
+d = 3 (`launches`) and at d = 2 (`launches_2d`) apart. What a spec derives
+(scales, level sizes and offsets) is computed once per spec
+(`grid_constants`), and what a launch needs of it (the C arguments, the
+checks of the spec, the level table on each device) once more
+(`kernel_spec`): a wrapper call pays only its tensor checks, an allocation
+and the ctypes call, with the device and the stream read through
+PyTorch's raw accessors (`kernels.on_device`, `kernels.current_stream`).
+Positions get no gradient, as in the JAX custom VJP: every caller feeds
+positions drawn without gradient.
 """
 
 from __future__ import annotations
@@ -174,16 +178,6 @@ def level_table(spec: HashGridSpec) -> np.ndarray:
     return tab.view(np.int32)
 
 
-_LEVEL_TABLES: Dict[Tuple[HashGridSpec, torch.device], torch.Tensor] = {}
-
-
-def device_level_table(spec: HashGridSpec, device) -> torch.Tensor:
-    key = (spec, torch.device(device))
-    if key not in _LEVEL_TABLES:
-        _LEVEL_TABLES[key] = torch.from_numpy(level_table(spec)).to(device)
-    return _LEVEL_TABLES[key]
-
-
 def corner_rows_level(spec: HashGridSpec, pos: torch.Tensor, lvl: int):
     """Level-local corner rows and trilinear weights of [n, d] positions:
     ([2^d, n] int64 in [0, T_l), [2^d, n] float32), in corner_offsets
@@ -241,21 +235,35 @@ def hashgrid_encode_plain(table: torch.Tensor, positions: torch.Tensor,
     return torch.stack(outs, dim=1).reshape(lead + (spec.output_dim,))
 
 
-def check_devices(**tensors: torch.Tensor) -> None:
-    """Every tensor on one CUDA device."""
-    device = None
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor with the others")
-        if device is not None and t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        device = t.device
+@dataclasses.dataclass(frozen=True, eq=False)
+class KernelSpec:
+    """What a launch needs of a spec the kernels take (`kernel_spec`,
+    checked once per spec): the C entry points' spec arguments, the sizes
+    the wrappers check, the launch counter, and the level table on each
+    CUDA device, copied there at its first launch."""
+    values: int          # table floats: num_rows * F
+    num_levels: int
+    num_dims: int
+    hash_mask: int
+    hash_add: int
+    output_dim: int
+    counter: str         # launches (d = 3) or launches_2d (d = 2)
+    levels: np.ndarray   # level_table(spec)
+    level_tables: Dict[int, Tuple[torch.Tensor, int]]  # index: (t, ptr)
+
+    def levels_on(self, index: int) -> int:
+        """The device pointer of the level table on CUDA device `index`."""
+        entry = self.level_tables.get(index)
+        if entry is None:
+            t = torch.from_numpy(self.levels).to(f"cuda:{index}")
+            entry = self.level_tables[index] = (t, t.data_ptr())
+        return entry[1]
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_spec_args(spec: HashGridSpec) -> Tuple[int, int, int, int, int]:
-    """(num_rows, num_levels, num_dims, hash_mask, hash_add) of a spec the
-    kernels take, checked once per spec; raises on one they do not."""
+def kernel_spec(spec: HashGridSpec) -> KernelSpec:
+    """The launch constants of a spec the kernels take, checked once per
+    spec; raises on one they do not."""
     if spec.features_per_level != 2:
         raise ValueError("the kernels take features_per_level == 2")
     if spec.num_dims not in KERNEL_DIMS:
@@ -264,40 +272,50 @@ def kernel_spec_args(spec: HashGridSpec) -> Tuple[int, int, int, int, int]:
     c = grid_constants(spec)
     if c.num_rows >= 1 << 31:
         raise ValueError("table rows must fit int32")
-    return c.num_rows, spec.num_levels, spec.num_dims, c.hash_mask, \
-        c.hash_add
+    return KernelSpec(c.num_rows * 2, spec.num_levels, spec.num_dims,
+                      c.hash_mask, c.hash_add, spec.output_dim,
+                      "launches_2d" if spec.num_dims == 2 else "launches",
+                      level_table(spec), {})
 
 
-def check_kernel_args(spec: HashGridSpec, aligned: Tuple[str, ...] = (),
-                      **tensors: torch.Tensor) -> Tuple[int, ...]:
-    """Dtype, contiguity, alignment and spec checks of the kernels'
-    arguments; returns `kernel_spec_args(spec)`. The tensors named in
-    `aligned` (the table, the table gradient) are read or added as 16-byte
-    row pairs, so they must start on 16 bytes: a view from an odd row would
-    fault on the card. The spec's checks run once per spec."""
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if name in aligned and t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-    return kernel_spec_args(spec)
+def check_devices(a_name: str, a: torch.Tensor, b_name: str,
+                  b: torch.Tensor) -> int:
+    """Both tensors on one CUDA device; returns its index."""
+    index = a.get_device()
+    if index < 0:
+        raise ValueError(f"{a_name} must be a CUDA tensor with {b_name}")
+    if b.get_device() != index:
+        raise ValueError(f"{b_name} is on {b.device}, expected {a.device}")
+    return index
+
+
+def check_tensor(name: str, t: torch.Tensor, aligned: bool = False) -> int:
+    """Dtype and contiguity checks of one kernel argument, and with
+    `aligned` (the table, the table gradient: read or added as 16-byte row
+    pairs, so a view from an odd row would fault on the card) its start on
+    16 bytes; returns its data pointer."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    ptr = t.data_ptr()
+    if aligned and ptr % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+    return ptr
 
 
 def launch_encode(lib, table: torch.Tensor, positions: torch.Tensor,
                   out: torch.Tensor, spec: HashGridSpec) -> None:
     """One call of a kernel library's `hashgrid_fwd` into `out`; raises on
     bad arguments or a launch error."""
-    _, levels, dims, mask, add = check_kernel_args(
-        spec, aligned=("table",), table=table, positions=positions, out=out)
-    device = table.device
-    with kernels.on_device(device):
-        status = lib.hashgrid_fwd(
-            table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            positions.numel() // dims, levels, dims, mask, add,
-            device_level_table(spec, device).data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+    k = kernel_spec(spec)
+    index = table.get_device()
+    args = (check_tensor("table", table, True),
+            check_tensor("positions", positions), check_tensor("out", out),
+            positions.numel() // k.num_dims, k.num_levels, k.num_dims,
+            k.hash_mask, k.hash_add, k.levels_on(index))
+    with kernels.on_device(index):
+        status = lib.hashgrid_fwd(*args, kernels.current_stream(index))
     kernels.check(status, "hashgrid_fwd")
 
 
@@ -308,27 +326,23 @@ def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
     if not table.is_cuda and not positions.is_cuda:
         with torch.no_grad():
             return hashgrid_encode_plain(table, positions, spec)
-    check_devices(table=table, positions=positions)
-    values = grid_constants(spec).num_rows * spec.features_per_level
-    if table.numel() != values:
+    k = kernel_spec(spec)
+    check_devices("table", table, "positions", positions)
+    if table.numel() != k.values:
         raise ValueError(f"table has {table.numel()} values, spec needs "
-                         f"{values}")
-    if positions.shape[-1] != spec.num_dims:
-        raise ValueError(f"positions must end in {spec.num_dims} dims")
-    out = torch.empty(positions.shape[:-1] + (spec.output_dim,),
-                      dtype=torch.float32, device=table.device)
+                         f"{k.values}")
+    if positions.shape[-1] != k.num_dims:
+        raise ValueError(f"positions must end in {k.num_dims} dims")
+    out = table.new_empty(positions.shape[:-1] + (k.output_dim,))
     launch_encode(kernels.load(), table, positions, out, spec)
     if out.numel():
-        count_launch(hashgrid_fwd, spec)
+        count_launch(hashgrid_fwd, k)
     return out
 
 
-def count_launch(wrapper, spec: HashGridSpec) -> None:
+def count_launch(wrapper, k: KernelSpec) -> None:
     """One launch of the wrapper's d = 3 or d = 2 kernel."""
-    if spec.num_dims == 2:
-        wrapper.launches_2d += 1
-    else:
-        wrapper.launches += 1
+    setattr(wrapper, k.counter, getattr(wrapper, k.counter) + 1)
 
 
 hashgrid_fwd.launches = 0      # d = 3

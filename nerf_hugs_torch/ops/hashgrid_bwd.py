@@ -21,9 +21,9 @@ import torch
 
 from nerf_hugs_torch.ops import kernels
 from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_devices,
-                                          check_kernel_args, count_launch,
-                                          corner_rows_level,
-                                          device_level_table, grid_constants)
+                                          check_tensor, corner_rows_level,
+                                          count_launch, grid_constants,
+                                          kernel_spec)
 
 
 def hashgrid_table_grad_plain(positions: torch.Tensor, grad_out: torch.Tensor,
@@ -49,16 +49,15 @@ def launch_table_grad(lib, positions: torch.Tensor, grad_out: torch.Tensor,
                       grad_table: torch.Tensor, spec: HashGridSpec) -> None:
     """One call of a kernel library's `hashgrid_bwd`, adding into the zeroed
     `grad_table`; raises on bad arguments or a launch error."""
-    _, levels, dims, mask, add = check_kernel_args(
-        spec, aligned=("grad_table",), positions=positions,
-        grad_out=grad_out, grad_table=grad_table)
-    device = positions.device
-    with kernels.on_device(device):
-        status = lib.hashgrid_bwd(
-            positions.data_ptr(), grad_out.data_ptr(), grad_table.data_ptr(),
-            positions.numel() // dims, levels, dims, mask, add,
-            device_level_table(spec, device).data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+    k = kernel_spec(spec)
+    index = positions.get_device()
+    args = (check_tensor("positions", positions),
+            check_tensor("grad_out", grad_out),
+            check_tensor("grad_table", grad_table, True),
+            positions.numel() // k.num_dims, k.num_levels, k.num_dims,
+            k.hash_mask, k.hash_add, k.levels_on(index))
+    with kernels.on_device(index):
+        status = lib.hashgrid_bwd(*args, kernels.current_stream(index))
     kernels.check(status, "hashgrid_bwd")
 
 
@@ -68,18 +67,18 @@ def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
     for CPU tensors."""
     if not positions.is_cuda and not grad_out.is_cuda:
         return hashgrid_table_grad_plain(positions, grad_out, spec)
-    check_devices(positions=positions, grad_out=grad_out)
-    n = positions.numel() // spec.num_dims
-    if positions.shape[-1] != spec.num_dims \
-            or grad_out.numel() != n * spec.output_dim:
+    k = kernel_spec(spec)
+    check_devices("positions", positions, "grad_out", grad_out)
+    n = positions.numel() // k.num_dims
+    if positions.shape[-1] != k.num_dims \
+            or grad_out.numel() != n * k.output_dim:
         raise ValueError(f"positions {tuple(positions.shape)} and grad_out "
                          f"{tuple(grad_out.shape)} do not match the spec")
-    grad_table = torch.zeros(grid_constants(spec).num_rows
-                             * spec.features_per_level,
-                             dtype=torch.float32, device=positions.device)
+    # Whole: the kernel adds into every row.
+    grad_table = positions.new_zeros(k.values)
     launch_table_grad(kernels.load(), positions, grad_out, grad_table, spec)
     if n:
-        count_launch(hashgrid_table_grad, spec)
+        count_launch(hashgrid_table_grad, k)
     return grad_table
 
 

@@ -131,14 +131,23 @@ def load() -> types.SimpleNamespace:
 _SAME_DEVICE = contextlib.nullcontext()
 
 
-def on_device(device):
-    """A context that makes `device` the current CUDA device for a launch:
-    nothing where it already is (the usual case, and the cheap one on the
-    host's launch path), torch.cuda.device otherwise."""
+def on_device(index: int):
+    """A context that makes CUDA device `index` the current device for a
+    launch: nothing where it already is (the usual case, and the cheap one
+    on the host's launch path), torch.cuda.device otherwise. The current
+    device is read through PyTorch's raw accessor; the caller holds a CUDA
+    tensor, so CUDA is initialised."""
     import torch
-    if device.index is None or device.index == torch.cuda.current_device():
+    if index == torch._C._cuda_getDevice():
         return _SAME_DEVICE
-    return torch.cuda.device(device)
+    return torch.cuda.device(index)
+
+
+def current_stream(index: int) -> int:
+    """The cudaStream_t of CUDA device `index`'s current stream, as an int,
+    from PyTorch's raw accessor (no Stream object is made)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(status: int, name: str) -> None:

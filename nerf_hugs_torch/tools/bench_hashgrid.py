@@ -8,6 +8,8 @@ train step of several checkouts.
         [--steps 48] [--runs RUN [RUN ...]] [--profile] [--out JSON]
     python -m nerf_hugs_torch.tools.bench_hashgrid wrappers ROOT [ROOT ...] \\
         [--out JSON]
+    python -m nerf_hugs_torch.tools.bench_hashgrid host [--reps 2000] \\
+        [--out JSON]
 
 `kernels` loads the package's kernels (ops/kernels.py) and, with
 --baseline, builds the given hashgrid.cu with the same nvcc flags into a
@@ -38,7 +40,20 @@ given (e.g. parent, change, change, parent), that checkout's own wrappers
 on the same inputs, made from a seed: HA-NeRF's mask grid at its 16384
 pixel centres and at 2^20 uniform positions, and kubric_nerfacto_base's
 field and proposal grids on uniform positions of their main-path shapes;
-each reading a median of 10 CUDA-event runs around one call.
+each reading a median of 50 CUDA-event runs around one call (the host's
+jitter moves a 0.03-0.08 ms call). At the pixel centres, where the host
+sets a call's time, also the mean host microseconds a call over 1000
+calls back to back (`fwd_host_us`, `bwd_host_us`), the device
+synchronised before and after them.
+
+`host` breaks the hash-grid wrappers' host path into its steps: the mean
+host microseconds per call of each (kernel_spec, the device and tensor
+checks, the output allocation, the level table's pointer, the current
+device, the raw stream, the ctypes call without and with a launch, the
+launch counter), of the PyTorch calls an earlier path made in their place
+(torch.device, torch.empty and torch.zeros with a device argument,
+torch.cuda.current_stream) and of the two wrappers whole, at HA-NeRF's
+mask grid on its 16384 pixel centres.
 
 `train` runs `python -m nerf_hugs_torch.train` from each checkout ROOT in
 the order given (e.g. parent, change, change, parent), once per RUN in the
@@ -390,7 +405,7 @@ def profile_steps(root: str, cfg: str, data_dir: str, stage: str = "train",
 # Makes its own inputs (the same in every checkout from the seed): a
 # checkout may predate hashgrid_inputs.pixel_centres.
 WRAPPER_WORKER = r"""
-import json, statistics, torch
+import json, statistics, time, torch
 from nerf_hugs_torch.ops import hashgrid, hashgrid_bwd
 from nerf_hugs_torch.models.nerfacto import MASK_GRID
 gen = torch.Generator(device="cuda").manual_seed(0)
@@ -403,7 +418,7 @@ def pixel_centres(n, size=256, patch=16):
 def median_ms(fn):
     fn()
     times = []
-    for _ in range(10):
+    for _ in range(50):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -412,6 +427,15 @@ def median_ms(fn):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+def host_us(fn, reps=1000):
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
 sets = [("mask pixel centres", MASK_GRID, pixel_centres(16384)),
         ("mask 2^20 uniform", MASK_GRID,
          torch.rand((1 << 20, 2), generator=gen, device="cuda"))]
@@ -427,10 +451,11 @@ for name, spec, p in sets:
     table = torch.rand(spec.num_rows * 2, generator=gen, device="cuda")
     g = torch.randn(p.shape[:-1] + (spec.output_dim,), generator=gen,
                     device="cuda")
-    out[name] = {
-        "fwd": median_ms(lambda: hashgrid.hashgrid_fwd(table, p, spec)),
-        "bwd": median_ms(
-            lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec))}
+    fwd = lambda: hashgrid.hashgrid_fwd(table, p, spec)
+    bwd = lambda: hashgrid_bwd.hashgrid_table_grad(p, g, spec)
+    out[name] = {"fwd": median_ms(fwd), "bwd": median_ms(bwd)}
+    if name == "mask pixel centres":
+        out[name].update(fwd_host_us=host_us(fwd), bwd_host_us=host_us(bwd))
     del table, g
 print("WRAPPERS " + json.dumps(out))
 """
@@ -446,8 +471,87 @@ def wrappers_main(args) -> dict:
         times = json.loads(out.split("WRAPPERS ", 1)[1])
         report["runs"].append({"root": root, "times": times})
         for name, t in times.items():
+            host = (f"; back to back {t['fwd_host_us']:.2f} / "
+                    f"{t['bwd_host_us']:.2f} us a call"
+                    if "fwd_host_us" in t else "")
             print(f"wrappers {root} {name}: fwd {t['fwd']:.4f} ms, "
-                  f"table-grad {t['bwd']:.4f} ms", flush=True)
+                  f"table-grad {t['bwd']:.4f} ms{host}", flush=True)
+    return report
+
+
+def host_main(args) -> dict:
+    """Host microseconds per call of each step of the hash-grid wrappers'
+    launch path, and of the PyTorch calls an earlier path made instead, at
+    HA-NeRF's mask grid on its 16384 pixel centres: the mean of `reps`
+    calls after a warm-up, the device synchronised before each step."""
+    import time
+    from nerf_hugs_torch.models.nerfacto import MASK_GRID as spec
+    reps = args.reps
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = hashgrid_inputs.MASK_N
+    p = hashgrid_inputs.pixel_centres(gen, n)
+    g = torch.randn((n, spec.output_dim), generator=gen, device="cuda")
+    table = torch.rand(spec.num_rows * 2, generator=gen, device="cuda")
+    out = torch.empty((n, spec.output_dim), device="cuda")
+    lib = kernels.load()
+    k = hashgrid.kernel_spec(spec)
+    index = table.get_device()
+    device = table.device
+    shape = (n, spec.output_dim)
+    fwd_args = lambda count: (
+        table.data_ptr(), p.data_ptr(), out.data_ptr(), count, k.num_levels,
+        k.num_dims, k.hash_mask, k.hash_add, k.levels_on(index),
+        kernels.current_stream(index))
+    args0, args_n = fwd_args(0), fwd_args(n)
+    level_tables = {(spec, device): None}
+    steps = {
+        # This path's steps.
+        "kernel_spec (cached per spec)": lambda: hashgrid.kernel_spec(spec),
+        "check_devices (get_device)": lambda: hashgrid.check_devices(
+            "table", table, "positions", p),
+        "check_tensor x3": lambda: (hashgrid.check_tensor("table", table,
+                                                          True),
+                                    hashgrid.check_tensor("positions", p),
+                                    hashgrid.check_tensor("out", out)),
+        "table.new_empty (features)": lambda: table.new_empty(shape),
+        "positions.new_zeros (table gradient)": lambda: p.new_zeros(
+            k.values),
+        "levels_on (by device index)": lambda: k.levels_on(index),
+        "on_device (current_device)": lambda: kernels.on_device(index),
+        "current_stream (raw)": lambda: kernels.current_stream(index),
+        "ctypes hashgrid_fwd, n = 0 (no launch)": lambda: lib.hashgrid_fwd(
+            *args0),
+        "ctypes hashgrid_fwd, launch": lambda: lib.hashgrid_fwd(*args_n),
+        "count_launch": lambda: hashgrid.count_launch(hashgrid.hashgrid_fwd,
+                                                      k),
+        # What an earlier path called instead.
+        "torch.device + dict lookup by (spec, device)":
+            lambda: level_tables.get((spec, torch.device(device))),
+        "tensor.device x2 and compare": lambda: table.device == p.device,
+        "torch.empty(device=...)": lambda: torch.empty(
+            shape, dtype=torch.float32, device=device),
+        "torch.zeros(device=...)": lambda: torch.zeros(
+            k.values, dtype=torch.float32, device=device),
+        "torch.cuda.current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(device).cuda_stream,
+        # The wrappers whole.
+        "hashgrid_fwd (wrapper)": lambda: hashgrid.hashgrid_fwd(table, p,
+                                                                 spec),
+        "hashgrid_table_grad (wrapper)": lambda: hashgrid_bwd
+        .hashgrid_table_grad(p, g, spec),
+    }
+    report = {}
+    for name, fn in steps.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        report[name] = us
+        print(f"host {name}: {us:.2f} us", flush=True)
     return report
 
 
@@ -534,13 +638,15 @@ def main(argv=None) -> dict:
     w = sub.add_parser("wrappers")
     w.add_argument("roots", nargs="+", help="checkouts whose wrappers to "
                    "time, in this order")
-    for p in (k, t, w):
+    h = sub.add_parser("host")
+    h.add_argument("--reps", type=int, default=2000)
+    for p in (k, t, w, h):
         p.add_argument("--out", help="write the report here as JSON")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_hashgrid needs a CUDA device")
     report = {"kernels": kernels_main, "train": train_main,
-              "wrappers": wrappers_main}[args.mode](args)
+              "wrappers": wrappers_main, "host": host_main}[args.mode](args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -105,9 +105,12 @@ def test_kernel_argument_checks(case, match):
         spec = thg.HashGridSpec(num_levels=2, log2_hashmap_size=10,
                                 num_dims=d)
         args["positions"] = torch.zeros(n, d)
-    # The wrappers name the table and the table gradient as aligned.
-    check = lambda: thg.check_kernel_args(
-        spec, aligned=("table", "grad_table"), **args)
+    # The launches check each tensor and the spec; they ask alignment of
+    # the table and the table gradient.
+    def check():
+        for name, t in args.items():
+            thg.check_tensor(name, t, aligned=name in ("table", "grad_table"))
+        return thg.kernel_spec(spec)
     if match is None:
         check()
     else:
@@ -116,8 +119,8 @@ def test_kernel_argument_checks(case, match):
     # Alignment is asked of the named tensors only: an odd-row view of the
     # positions' storage is fine.
     if case == "ok":
-        thg.check_kernel_args(spec, positions=torch.zeros(3 * n + 2)[2:]
-                              .view(n, 3))
+        view = torch.zeros(3 * n + 2)[2:].view(n, 3)
+        assert thg.check_tensor("positions", view) == view.data_ptr()
 
 
 def config_grids():
@@ -181,14 +184,14 @@ def test_grid_constants_equal_the_jax_spec(spec):
 
 @pytest.mark.parametrize("num_dims", [3, 2])
 def test_spec_constants_are_computed_once(monkeypatch, num_dims):
-    """The spec's properties, two preparations of the forward and gradient
-    wrappers' launches (the argument checks, the kernels' spec arguments,
-    the level table) and the plain versions derive the spec's levels once:
-    level_scales runs one time, not at every property access."""
+    """The spec's properties, two preparations of the wrappers' launches
+    (kernel_spec: the spec's checks, the C arguments, the level table) and
+    the plain versions derive the spec's levels once: level_scales runs
+    one time, not at every property access."""
     spec = thg.HashGridSpec(num_levels=5, log2_hashmap_size=11, base_res=7,
                             max_res=301, num_dims=num_dims)
     thg.grid_constants.cache_clear()
-    thg.kernel_spec_args.cache_clear()
+    thg.kernel_spec.cache_clear()
     calls = []
     real = thg.level_scales
     monkeypatch.setattr(thg, "level_scales",
@@ -196,17 +199,12 @@ def test_spec_constants_are_computed_once(monkeypatch, num_dims):
     rows = spec.num_rows
     n = 33
     for _ in range(2):
-        table = torch.zeros(rows * 2)
-        pos = torch.zeros(n, num_dims)
-        fwd = thg.check_kernel_args(spec, aligned=("table",), table=table,
-                                    positions=pos,
-                                    out=torch.zeros(n, spec.output_dim))
-        bwd = thg.check_kernel_args(spec, aligned=("grad_table",),
-                                    positions=pos,
-                                    grad_out=torch.zeros(n, spec.output_dim),
-                                    grad_table=torch.zeros(rows * 2))
-        thg.device_level_table(spec, "cpu")
-        assert fwd == bwd == (rows, 5, num_dims, 2047, 0)
+        k = thg.kernel_spec(spec)
+        assert (k.values, k.num_levels, k.num_dims, k.hash_mask, k.hash_add,
+                k.output_dim) == (rows * 2, 5, num_dims, 2047, 0,
+                                  spec.output_dim)
+        assert k.counter == ("launches_2d" if num_dims == 2 else "launches")
+        np.testing.assert_array_equal(k.levels, thg.level_table(spec))
     assert len(calls) == 1
     # The plain versions read the same constants.
     thg.hashgrid_encode_plain(torch.zeros(rows * 2), torch.rand(n, num_dims),
@@ -258,7 +256,8 @@ def test_capture_hashgrid_inputs_on_a_tiny_model(tmp_path):
 
 
 @pytest.mark.parametrize("mode", [["kernels", "--captured"],
-                                  ["train", "."], ["wrappers", ".", "."]])
+                                  ["train", "."], ["wrappers", ".", "."],
+                                  ["host"]])
 def test_bench_without_a_card_raises(monkeypatch, mode):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):

@@ -7,8 +7,8 @@ warps split between two cells, pixel patches (at the mask's coarse levels a
 warp's lanes share a cell), lines whose ends leave the square and collapse
 to the origin with a zero gradient, and the exact-1.0 edges. The
 `cuda`-marked test holds the d = 2 kernels against the plain versions on
-the same sets and skips without a GPU, as chip_smoke.py does at the mask's
-full size.
+the same sets (the forward bit for bit) and skips without a GPU, as
+chip_smoke.py does at the mask's full size.
 """
 
 import os
@@ -216,8 +216,9 @@ def test_2d_kernels_match_plain(cuda, name):
     got_g = tbwd.hashgrid_table_grad(pos, cot, spec)
     assert thg.hashgrid_fwd.launches_2d == fwd0 + 1
     assert tbwd.hashgrid_table_grad.launches_2d == bwd0 + 1
+    # Bit for bit: the forward repeats the plain version's arithmetic.
     torch.testing.assert_close(got_f, thg.hashgrid_encode_plain(
-        table, pos, spec), rtol=0, atol=FWD_TOL)
+        table, pos, spec), rtol=0, atol=0)
     want_g = tbwd.hashgrid_table_grad_plain(pos, cot, spec)
     assert float((got_g - want_g).abs().max()) <= GRAD_TOL * float(
         want_g.abs().max())
