@@ -105,9 +105,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      counters read around each stage: hashgrid_bwd must launch in the
      train stage and never in the finetune stage (only
      appearance_embedding trains); the beta and density terms must be
-     finite; then an eval of 2 test images from the finetune checkpoint.
+     finite; then an eval of 2 test images from the finetune checkpoint;
+  13. HuGS: (a) SAM at vit_t (its published 1024 input) on the card against
+     the same weights on the CPU, the image embedding, the decoder's
+     full-resolution logits and IoU, and predict_count's maps (relative
+     error at most 1e-4 of the largest entry; a count may differ only
+     where a logit lies that close to the threshold); (b)
+     scripts/hugs_kubric.sh's three stages on a kubric capture written
+     with a COLMAP model in sparse/0 (2 train frames at 256x256 in rgb/1x/
+     and 128x128 in rgb/2x/, 2 test frames): 8 steps of
+     configs/nerfacto/kubric_nerfacto_gen_mask.yml, `nerf_hugs_torch.eval`
+     of the train split with --original_name --only_pred_gt, `python -m
+     nerf_hugs_torch.hugs` at vit_h (random weights from a seeded
+     generator on the card) with configs/hugs/kubric.yml into the scene,
+     then 4 steps of kubric_nerfacto_withmask.yml reading the masks just
+     written (the scene's own masks are deleted first): the hash-grid
+     kernels launch in stages 1, 2 and 4 and no NeRF kernel in stage 3,
+     one mask per train frame at its size with values in {0, 1}; (c) at
+     vit_h, the encoder's ms per set_image, the decoder's per batch of 64
+     and of 256 prompts (filters and packing included), s/image with its
+     stage split at configs/hugs/kubric.yml and kubric_tpu.yml, and at
+     kubric.yml on one 768x1024 frame, with peak device memory.
 Each train run prints its steps/s over steps 2-8 and its peak device
-memory. Each hash-grid timing line also gives the kernels' own device time from a
+memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
 one wrapper call mostly see the host's launch path. Beside each timed
 kernel it prints its bound: the least time the card could
@@ -155,6 +175,16 @@ ADVERSARIAL_N = (1 << 13) + 37
 F32_STEPS = 4
 ACCUM_N = 1 << 21          # samples of the planar-accumulate microbenchmark
 ACCUM_SIZES = (81, 127)    # its dense levels of N^3 rows checked in phase 9
+# HuGS (phase 13): a kubric capture of two train and two test frames,
+# 256x256 in rgb/1x/ (the gen_mask config's downsample_factor 1) and
+# 128x128 in rgb/2x/ (withmask's 2); train steps of the gen_mask stage and
+# of the withmask retrain; the vit_t card-against-CPU check's prompts and
+# its relative tolerance (TF32 off).
+HUGS_TRAIN, HUGS_TEST, HUGS_SIZE = 2, 2, 256
+HUGS_STEPS, WITHMASK_STEPS = 8, 4
+SAM_PROMPTS, SAM_TOL = 16, 1e-4
+# The frame of the extra s/image reading: the reference captures' size.
+HUGS_BIG = (768, 1024)
 # NVIDIA H100 SXM data sheet: memory rate, dense peaks by operand type
 # (bf16 on the tensor cores, fp32 on the FMA units).
 HBM_BYTES_PER_S = 3.35e12
@@ -187,10 +217,12 @@ def median_ms(fn, runs: int = 10) -> float:
 
 
 def device_ms(torch, fn, kernel: str, runs: int = 20):
-    """Mean device time per call of `fn` of the CUDA kernels whose name
-    holds `kernel`, from torch.profiler's trace (None where it recorded no
-    device time): the kernel alone, without the host's launch path that
-    CUDA events around a short kernel also see."""
+    """Mean device time per launch of the CUDA kernel whose name holds
+    `kernel` (each call of `fn` launches it once), over the launches
+    torch.profiler's trace recorded (None where it recorded none): the
+    kernel alone, without the host's launch path that CUDA events around a
+    short kernel also see. The trace may drop a few records of a short
+    session, so the mean is taken over those it kept."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -198,9 +230,11 @@ def device_ms(torch, fn, kernel: str, runs: int = 20):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if kernel in e.key)
-    return total / runs / 1e3 if total > 0 else None
+    events = [e for e in prof.key_averages()
+              if kernel in e.key and e.device_time_total > 0]
+    count = sum(e.count for e in events)
+    total = sum(e.device_time_total for e in events)
+    return total / count / 1e3 if count else None
 
 
 def bound(nbytes: float, flops: float, dtype: str = "float32"):
@@ -970,6 +1004,9 @@ def accum_phase(torch, dev):
         err = float((out_k - out_p).abs().max())
         sub_err = float((sub_k - sub_p).abs().max())
         t = {"ms": median_ms(lambda: accum.planar_accum(*vals, w)),
+             "alone_ms": device_ms(torch,
+                                   lambda: accum.planar_accum(*vals, w),
+                                   "planar_accum"),
              "plain_ms": median_ms(
                  lambda: accum.planar_accum_plain(*vals, w))}
         # The yardstick: one einsum over the same gathered rows and weights,
@@ -988,7 +1025,8 @@ def accum_phase(torch, dev):
         timings[N] = t
         print(f"check planar_accum, gathers of {ACCUM_N} samples from "
               f"{N}^3 rows: max_abs={err:.3e} (ragged span {sub_err:.3e}, "
-              f"tol 1e-5); kernel {t['ms']:.4f} ms, plain "
+              f"tol 1e-5); kernel {t['ms']:.4f} ms (alone "
+              f"{_ms(t['alone_ms'])}), plain "
               f"{t['plain_ms']:.4f} ms, einsum {t['library_ms']:.4f} ms "
               f"(max_abs {lib_err:.3e}), bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}, {nbytes(*vals, w, out_k) / 1e6:.1f} MB)",
@@ -1015,6 +1053,225 @@ def accum_phase(torch, dev):
           f"{len(report)} sizes in {time.time() - t0:.1f} s; launches "
           f"{launches}", flush=True)
     return worst, timings, launches["planar_accum"]
+
+
+def _ms(v) -> str:
+    return "not recorded" if v is None else f"{v:.4f} ms"
+
+
+def _rel_err(got, want) -> float:
+    """Largest absolute difference over the reference's largest entry."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def sam_card_phase(torch, dev):
+    """Phase 13a: SAM (vit_t at its published 1024 input and window 14) on
+    the card against the same weights on the CPU: the image embedding, the
+    decoder's full-resolution logits and IoU for SAM_PROMPTS prompts, and
+    predict_count's maps. A count may differ only at a pixel where one of
+    the CPU's logits lies within SAM_TOL of the largest of the threshold;
+    returns the worst relative errors."""
+    import numpy as np
+    from nerf_hugs_torch.hugs.sam import weights
+    from nerf_hugs_torch.hugs.sam.predictor import SamPredictor, build_sam
+    cpu_sam = build_sam("vit_t", device="cpu", rng_seed=0)
+    cpu = SamPredictor(cpu_sam)
+    card = SamPredictor(weights.load_state_dict(
+        build_sam("vit_t", device=dev), cpu_sam.state_dict()))
+    rs = np.random.RandomState(0)
+    hw = (200, 300)
+    image = (rs.rand(*hw, 3) * 255).astype(np.uint8)
+    for p in (cpu, card):
+        p.set_image(image)
+    errs = {"encoder": _rel_err(card._embedding.cpu(), cpu._embedding)}
+    pts = cpu.apply_coords(rs.rand(SAM_PROMPTS, 1, 2) * [hw[1], hw[0]], hw)
+    labels = np.ones((SAM_PROMPTS, 1))
+    logits, iou = cpu.predict_batched(pts, labels)
+    card_logits, card_iou = card.predict_batched(pts, labels)
+    errs["logits"] = _rel_err(card_logits, logits)
+    errs["iou"] = _rel_err(card_iou, iou)
+    near = (np.abs(logits) <= SAM_TOL * np.abs(logits).max()).any((0, 1))
+    flips = 0
+    for best in (True, False):
+        args = (pts, labels, 0.0, 0.0, 1.0, SAM_PROMPTS, best)
+        diff = card.predict_count(*args) != cpu.predict_count(*args)
+        check(bool(near[diff].all()),
+              f"SAM counts differ away from the threshold (select_best "
+              f"{best}): {int(diff.sum())} pixels")
+        flips += int(diff.sum())
+    print(f"check SAM vit_t card vs cpu, {hw[0]}x{hw[1]} image, "
+          f"{SAM_PROMPTS} prompts: relative errors encoder "
+          f"{errs['encoder']:.3e}, logits {errs['logits']:.3e}, iou "
+          f"{errs['iou']:.3e} (tol {SAM_TOL}); count maps differ at "
+          f"{flips} pixels, each within {SAM_TOL} of the threshold",
+          flush=True)
+    check(max(errs.values()) <= SAM_TOL,
+          f"SAM on the card disagrees with the CPU: {errs}")
+    return errs
+
+
+def _hugs_line(tag: str, records) -> str:
+    """`tag`: s/image and the stage split, mean over the records."""
+    from nerf_hugs_torch.hugs.segment import STAGES
+    n = len(records)
+    stages = " ".join(
+        f"{k}={sum(r[2].get(k, 0.0) for r in records) / n:.3f}"
+        for k in STAGES)
+    return (f"hugs {tag}: {sum(r[1] for r in records) / n:.3f} s/image "
+            f"over {n} ({', '.join(f'{r[1]:.3f}' for r in records)}); "
+            f"stages s/image {stages}")
+
+
+def hugs_phase(torch, tmp: str, dev):
+    """Phase 13b: scripts/hugs_kubric.sh by its three stages on a written
+    kubric capture, and a withmask retrain on the masks they wrote; phase
+    13c: SAM's timings at vit_h. Returns the HuGS stage's records."""
+    import shutil
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from nerf_hugs_torch.data import base as data_base
+    from nerf_hugs_torch.data import load_dataset
+    from nerf_hugs_torch.eval import main as eval_main
+    from nerf_hugs_torch.hugs import main as hugs_main
+    from nerf_hugs_torch.hugs import segment
+    from nerf_hugs_torch.hugs.sam.amg import build_point_grid
+    from nerf_hugs_torch.hugs.sam.predictor import SamPredictor, build_sam
+    from nerf_hugs_torch.tools.hashgrid_inputs import (shipped_yaml,
+                                                       write_kubric_scene)
+    from nerf_hugs_torch.train.driver import load_config
+    t0 = time.time()
+    scene = write_kubric_scene(os.path.join(tmp, "hugs_kubric"), HUGS_TRAIN,
+                               HUGS_TEST, HUGS_SIZE, factors=(1, 2))
+    print(f"hugs scene: {HUGS_TRAIN} train + {HUGS_TEST} test frames at "
+          f"{HUGS_SIZE}x{HUGS_SIZE} (1x) and {HUGS_SIZE // 2} (2x), a "
+          f"COLMAP model in sparse/0, written in {time.time() - t0:.1f} s",
+          flush=True)
+    names = [f"{i:05d}" for i in range(HUGS_TRAIN)]
+    save_dir = os.path.join(tmp, "exp", "hugs_gen")
+    gen_cfg = shipped_yaml(tmp, "kubric_nerfacto_gen_mask", HUGS_STEPS)
+    # 1. Partial nerfacto training.
+    train_phase(torch, gen_cfg, scene, save_dir, "HuGS stage 1, gen_mask",
+                DENSE, num_steps=HUGS_STEPS)
+    # 2. The train split's pred/gt pairs.
+    reset_launches()
+    t0 = time.time()
+    eval_main(["--config", gen_cfg, "--data_dir", scene, "--save_dir",
+               save_dir, "--eval_data", "train", "--original_name",
+               "--only_pred_gt", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    preds = os.path.join(save_dir, "train_preds")
+    check(sorted(os.listdir(preds)) == sorted(
+        f"{n}_{k}.png" for n in names for k in ("color", "gt")),
+        f"stage 2 wrote {sorted(os.listdir(preds))}")
+    check(launches["hashgrid_fwd"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "hashgrid_fwd"),
+        f"stage 2 launches {launches}")
+    print(f"hugs stage 2 (eval of the train split, --original_name "
+          f"--only_pred_gt): {HUGS_TRAIN} pairs in {time.time() - t0:.1f} "
+          f"s; launches {launches}", flush=True)
+    # 3. The static masks, into the scene as the script writes them; the
+    # scene's own masks go first, so the retrain can read only these.
+    mask_dir = os.path.join(scene, "static_masks")
+    shutil.rmtree(mask_dir)
+    config_path = os.path.join(HERE, "configs", "hugs", "kubric.yml")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["NERF_HUGS_HUGS_TIMING"] = "1"
+    t0 = time.time()
+    records = hugs_main([
+        "--images", preds, "--colmap", os.path.join(scene, "sparse", "0"),
+        "--sam_model", "vit_h", "--output", scene, "--config", config_path,
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall, peak = time.time() - t0, torch.cuda.max_memory_allocated()
+    check(all(v == 0 for v in read_launches().values()),
+          f"the HuGS stage launched a NeRF kernel: {read_launches()}")
+    check([r[0] for r in records] == names, f"HuGS records {records}")
+    for name in names:
+        mask = np.asarray(Image.open(os.path.join(mask_dir, f"{name}.png")))
+        check(mask.shape[:2] == (HUGS_SIZE, HUGS_SIZE)
+              and set(np.unique(mask / 255.0)) <= {0.0, 1.0},
+              f"mask {name}: shape {mask.shape}, values "
+              f"{np.unique(mask)[:8]}")
+        check(os.path.exists(os.path.join(scene, "visualizations",
+                                          f"{name}.png")),
+              f"no visualization of {name}")
+    print(f"hugs stage 3 (python -m nerf_hugs_torch.hugs, vit_h, random "
+          f"weights, configs/hugs/kubric.yml): {HUGS_TRAIN} masks of "
+          f"{HUGS_SIZE}x{HUGS_SIZE} in {wall:.1f} s with the model's build; "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    print(_hugs_line(f"kubric.yml, {HUGS_SIZE}x{HUGS_SIZE}", records),
+          flush=True)
+    # 4. The withmask retrain on the masks just written.
+    wm_cfg = shipped_yaml(tmp, "kubric_nerfacto_withmask", WITHMASK_STEPS)
+    train = load_dataset("train", scene, load_config(wm_cfg, scene, ""),
+                         is_training=False)
+    for name, m in zip(names, train.static_masks):
+        want = data_base.load_static_mask(
+            os.path.join(mask_dir, f"{name}.png"), *m.shape[:2])
+        check(np.array_equal(m, want), f"the retrain did not read {name}")
+    train_phase(torch, wm_cfg, scene, os.path.join(tmp, "exp",
+                                                    "hugs_withmask"),
+                "HuGS stage 4, withmask retrain", DENSE,
+                num_steps=WITHMASK_STEPS)
+
+    # 13c. Timings at vit_h on the stage's own frames.
+    predictor = SamPredictor(build_sam("vit_h", device=dev))
+    gt = (segment.load_image_rgb(os.path.join(preds, f"{names[0]}_gt.png"))
+          [..., :3] * 255).astype(np.uint8)
+    enc = median_ms(lambda: predictor.set_image(gt), runs=5)
+    grid = predictor.apply_coords(build_point_grid(64) * HUGS_SIZE,
+                                  gt.shape[:2])
+    dec = {}
+    for n, budget in ((64, 192), (256, 64)):
+        pts, labels = grid[:n, None, :], np.ones((n, 1))
+        dec[n] = median_ms(lambda: predictor.predict_compact(
+            pts, labels, 0.8, 0.9, 1.0, n, budget), runs=5)
+    print(f"hugs SAM vit_h: encoder {enc:.3f} ms per set_image "
+          f"({HUGS_SIZE}x{HUGS_SIZE} frame); decoder + filters + packing "
+          f"{dec[64]:.3f} ms per batch of 64 prompts (budget 192), "
+          f"{dec[256]:.3f} ms per batch of 256 (budget 64)", flush=True)
+    with open(os.path.join(HERE, "configs", "hugs", "kubric_tpu.yml")) as f:
+        tpu_config = segment.SegmentConfig(**yaml.safe_load(f))
+    torch.cuda.reset_peak_memory_stats()
+    tpu_records = segment.main(preds, os.path.join(scene, "sparse", "0"),
+                               "vit_h", None, os.path.join(tmp, "hugs_tpu"),
+                               tpu_config, predictor=predictor)
+    print(_hugs_line(f"kubric_tpu.yml, {HUGS_SIZE}x{HUGS_SIZE}",
+                     tpu_records)
+          + f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    # One frame at the reference captures' 768x1024: the written frame and
+    # its render resized (the SfM points stretch with them).
+    import cv2
+    big = os.path.join(tmp, "hugs_big")
+    os.makedirs(big)
+    for kind in ("gt", "color"):
+        img = cv2.imread(os.path.join(preds, f"{names[0]}_{kind}.png"))
+        cv2.imwrite(os.path.join(big, f"{names[0]}_{kind}.png"),
+                    cv2.resize(img, HUGS_BIG[::-1],
+                               interpolation=cv2.INTER_LINEAR))
+    with open(config_path) as f:
+        config = segment.SegmentConfig(**yaml.safe_load(f))
+    torch.cuda.reset_peak_memory_stats()
+    big_records = segment.main(big, os.path.join(scene, "sparse", "0"),
+                               "vit_h", None, os.path.join(tmp, "hugs_out"),
+                               config, predictor=predictor)
+    print(_hugs_line(f"kubric.yml, {HUGS_BIG[0]}x{HUGS_BIG[1]}",
+                     big_records)
+          + f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    del predictor
+    torch.cuda.empty_cache()
+    return records
 
 
 def main() -> None:
@@ -1107,6 +1364,8 @@ def main() -> None:
         nerfw_phase(torch, shipped_yaml(
             tmp, "phototourism_nerfacto_nerfw", finetune_num_steps=4),
             phototourism, os.path.join(tmp, "exp", "nerfw"))
+        sam_card_phase(torch, dev)
+        hugs_phase(torch, tmp, dev)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

@@ -7,7 +7,8 @@ far, in the yaml dialect on the `kubric`, `distractor` and `phototourism`
 loaders and the procedural `synthetic` and `synthetic_distractor` scenes:
 the nerfacto train step with appearance and transient embeddings and the
 whole transient zoo (withmask, RobustNeRF, NeRF-W, HA-NeRF), the finetune
-stage, eval and scoring, and the dense-level forward microbenchmark.
+stage, eval and scoring, the dense-level forward microbenchmark, and HuGS
+static-mask generation with SAM.
 
 Layout:
   core/      ray math on tensors: step functions, warps, volume rendering
@@ -27,10 +28,15 @@ Layout:
              render, the two-stage `train` driver
   eval/      the `eval` driver
   metrics/   PSNR, SSIM, LPIPS, colour correction, the scoring CLI
-  configs/   the config tree and the nerfacto yaml loader
+  hugs/      HuGS: SAM (ViT encoder, prompt encoder, mask decoder, official
+             weights, predictor, automatic mask generator), the heuristics
+             and the static-mask CLI (`python -m nerf_hugs_torch.hugs`)
+  configs/   the config tree, the nerfacto yaml loader and the config.gin
+             snapshot
   native/    the threaded ray sampler's C++ source (g++, ctypes)
-  tools/     microbenchmarks (`bench_fwd_copies`, `bench_hashgrid`) and
-             their inputs (`hashgrid_inputs`: grids, configs, scene writers
-             in the kubric, distractor and phototourism layouts)
+  tools/     microbenchmarks (`bench_fwd_copies`, `bench_hashgrid`,
+             `bench_fused_mlp`, `bench_sam`) and their inputs
+             (`hashgrid_inputs`: grids, configs, scene writers in the
+             kubric, distractor and phototourism layouts)
   utils/     batch dataclasses, device and precision setup, image IO, run log
 """

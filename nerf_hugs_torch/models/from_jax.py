@@ -21,6 +21,25 @@ NerfactoModel.state_dict() of this package:
                                             as the field's modules
 A module holds Dense_k layers or w_i weights, never both; any other leaf
 is refused.
+
+sam_state_dict maps the flax tree of nerf_hugs_tpu's SAM
+(hugs/sam/modeling.py) onto segment-anything's state-dict keys, which the
+port's Sam uses (block_i -> blocks.i, layer_i -> layers.i, hyper_mlp_i ->
+output_hypernetworks_mlps.i, lin_j -> layers.j, mlp_lin1 -> mlp.lin1,
+neck_conv1/ln1/conv2/ln2 -> neck.0-3, upscale_conv1/ln/conv2 ->
+output_upscaling.0/1/3, iou_head -> iou_prediction_head), one rule per
+leaf kind:
+  Dense kernel [in, out]                 -> weight [out, in], transposed
+  Conv kernel HWIO                       -> weight OIHW
+  ConvTranspose kernel HWIO              -> weight IOHW, flipped in both
+                                            spatial axes (flax's
+                                            ConvTranspose does not flip
+                                            its kernel, torch's does)
+  LayerNorm scale                        -> weight
+  bias, LayerNorm2d weight, pos_embed, rel_pos_*, the Fourier matrix
+                                         -> as they are
+  point_embed_i, not_a_point_embed, no_mask_embed, iou_token,
+  mask_tokens [n, C]                     -> the embedding's weight
 """
 
 from __future__ import annotations
@@ -84,4 +103,71 @@ def convert_nerfacto_params(flax_params: Dict[str, Any]
                 prefix = f"{top}.{name}.layers.{int(m.group(1))}"
                 state[f"{prefix}.weight"] = as_tensor(np.asarray(p["kernel"]).T)
                 state[f"{prefix}.bias"] = as_tensor(p["bias"])
+    return state
+
+
+_SAM_SEGMENTS = (
+    (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
+    (re.compile(r"^layer_(\d+)$"), r"layers.\1"),
+    (re.compile(r"^hyper_mlp_(\d+)$"), r"output_hypernetworks_mlps.\1"),
+    (re.compile(r"^lin_(\d+)$"), r"layers.\1"),
+    (re.compile(r"^point_embed_(\d+)$"), r"point_embeddings.\1"),
+)
+_SAM_NAMES = {
+    "mlp_lin1": "mlp.lin1", "mlp_lin2": "mlp.lin2",
+    "patch_embed": "patch_embed.proj",
+    "neck_conv1": "neck.0", "neck_ln1": "neck.1", "neck_conv2": "neck.2",
+    "neck_ln2": "neck.3", "upscale_conv1": "output_upscaling.0",
+    "upscale_ln": "output_upscaling.1", "upscale_conv2": "output_upscaling.3",
+    "iou_head": "iou_prediction_head",
+}
+_SAM_CONV_T = ("upscale_conv1", "upscale_conv2")
+_SAM_EMBEDS = re.compile(
+    r"^(point_embed_\d+|not_a_point_embed|no_mask_embed|iou_token|"
+    r"mask_tokens)$")
+_SAM_AS_IS = ("pos_embed", "rel_pos_h", "rel_pos_w",
+              "positional_encoding_gaussian_matrix")
+
+
+def _sam_segment(name: str) -> str:
+    for pattern, repl in _SAM_SEGMENTS:
+        if pattern.match(name):
+            return pattern.sub(repl, name)
+    return _SAM_NAMES.get(name, name)
+
+
+def sam_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax SAM variables (nested dicts of numpy arrays, with or without
+    the top 'params' key) -> a state_dict for nerf_hugs_torch's Sam, which
+    then computes what the flax model computes."""
+    params = variables.get("params", variables)
+    state: Dict[str, torch.Tensor] = {}
+
+    def visit(path, tree):
+        for name, leaf in tree.items():
+            if hasattr(leaf, "items"):
+                visit(path + (name,), leaf)
+                continue
+            a = np.asarray(leaf, np.float32)
+            module = ".".join(_sam_segment(p) for p in path)
+            owner = path[-1] if path else ""
+            if _SAM_EMBEDS.match(name):
+                key = f"{module}.{_sam_segment(name)}.weight"
+            elif name in _SAM_AS_IS:
+                key = f"{module}.{name}"
+            elif name == "kernel" and a.ndim == 2:
+                key, a = f"{module}.weight", a.T
+            elif name == "kernel" and a.ndim == 4 and owner in _SAM_CONV_T:
+                key, a = f"{module}.weight", a.transpose(2, 3, 0, 1)[
+                    :, :, ::-1, ::-1]
+            elif name == "kernel" and a.ndim == 4:
+                key, a = f"{module}.weight", a.transpose(3, 2, 0, 1)
+            elif name in ("bias", "weight", "scale"):
+                key = f"{module}.{'bias' if name == 'bias' else 'weight'}"
+            else:
+                raise ValueError(
+                    f"unexpected flax SAM leaf {'/'.join(path + (name,))}")
+            state[key] = torch.from_numpy(np.array(a))
+
+    visit((), params)
     return state

@@ -129,17 +129,22 @@ def shipped_yaml(tmp: str, name: str, steps: int = 8, **base) -> str:
 
 def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
                        size: int = 256, world_scale: float = 0.5,
-                       seed: int = 0) -> str:
+                       seed: int = 0, factors=(SCENE_FACTOR,)) -> str:
     """The procedural sphere world of data/synthetic.py in the kubric
     layout (data/kubric.py) under `root`: scene_gt.json, dataset.json,
     freeze-test/dataset.json, camera-gt/ and freeze-test/camera-gt/ jsons
-    of one lens with SCENE_DISTORTION, size x size PNGs in rgb/{F}x/ and
-    freeze-test/static-rgb/{F}x/ (F = SCENE_FACTOR) rendered through that
-    lens, and an opaque random square pasted into each train frame, as
-    SyntheticDistractor does, marked 0 in static_masks/. The cameras ring
-    the origin at height 1.2 and radius 2.5 times world_scale; test views
-    sit between the train azimuths. near 0.1 and far 2 (after the loader's
-    1.2x) hold the sphere. Returns `root`."""
+    of one lens with SCENE_DISTORTION, PNGs in rgb/{f}x/ and
+    freeze-test/static-rgb/{f}x/ for each f of `factors` (size x size at
+    the first; the camera's full resolution is size times that factor)
+    rendered through that lens, and an opaque random square pasted into
+    each train frame, as SyntheticDistractor does, marked 0 in
+    static_masks/ (at the first factor's size). The cameras ring the
+    origin at height 1.2 and radius 2.5 times world_scale; test views sit
+    between the train azimuths. near 0.1 and far 2 (after the loader's
+    1.2x) hold the sphere.
+
+    sparse/0 holds the capture's COLMAP model (write_kubric_sfm), which
+    the HuGS stage reads. Returns `root`."""
     import numpy as np
     from PIL import Image
 
@@ -147,7 +152,7 @@ def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
     from nerf_hugs_torch.data import kubric
     from nerf_hugs_torch.data.synthetic import _sphere_world_color
     rng = np.random.RandomState(seed)
-    full = size * SCENE_FACTOR
+    full = size * factors[0]
     _write_json(os.path.join(root, "scene_gt.json"), {
         "center": [0.0, 0.0, 0.0], "scale": 1.0, "near": 0.1,
         "far": 2.0 / 1.2})
@@ -157,24 +162,19 @@ def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
                 {"train_ids": splits["train"]})
     _write_json(os.path.join(root, "freeze-test", "dataset.json"),
                 {"val_ids": splits["test"]})
+    views = []
     for split, names in splits.items():
         test = split == "test"
         prefix = "freeze-test" if test else ""
-        image_dir = os.path.join(root, prefix, "static-rgb" if test else "rgb",
-                                 f"{SCENE_FACTOR}x")
         camera_dir = os.path.join(root, prefix, "camera-gt")
-        for d in (image_dir, camera_dir):
-            os.makedirs(d, exist_ok=True)
+        os.makedirs(camera_dir, exist_ok=True)
         for i, name in enumerate(names):
             theta = 2 * np.pi * (i + 0.5 * test) / len(names)
             z_jitter = 0.0 if test else 0.1 * rng.randn()
             position = world_scale * np.array(
                 [2.5 * np.cos(theta), 2.5 * np.sin(theta), 1.2 + z_jitter])
-            c2w = camera_utils.viewmatrix(camera_utils.normalize(position),
-                                          np.array([0.0, 0, 1]), position)
-            # Kubric stores the world-to-camera rotation of an OpenCV
-            # camera (right, down, forward).
-            orientation = (c2w[:, :3] @ np.diag([1.0, -1.0, -1.0])).T
+            orientation = _kubric_orientation(position)
+            views.append((name, orientation, position))
             camera_path = os.path.join(camera_dir, f"{name}.json")
             _write_json(camera_path, {
                 "orientation": orientation.tolist(),
@@ -182,27 +182,119 @@ def write_kubric_scene(root: str, num_train: int = 32, num_test: int = 4,
                 "principal_point": [full / 2, full / 2], "skew": 0.0,
                 "pixel_aspect_ratio": 1.0, "image_size": [full, full],
                 **SCENE_DISTORTION})
-            # Render through the loader's own reading of the camera.
-            pixtocam, camtoworld, distortion = kubric._camera_from_json(
-                camera_path, SCENE_FACTOR)
-            xg, yg = camera_utils.pixel_coordinates(size, size)
-            origins, dirs, _, _ = camera_utils.pixels_to_rays(
-                xg, yg, pixtocam, camtoworld, distortion)
-            image = _sphere_world_color(origins, dirs,
-                                        radius=0.5 * world_scale)
             if not test:
                 sz = size // 4
                 y0, x0 = rng.randint(0, size - sz, 2)
-                image[y0:y0 + sz, x0:x0 + sz] = rng.rand(3)
+                color = rng.rand(3)
                 mask = np.full((size, size), 255, np.uint8)
                 mask[y0:y0 + sz, x0:x0 + sz] = 0
                 os.makedirs(os.path.join(root, "static_masks"),
                             exist_ok=True)
                 Image.fromarray(mask).save(
                     os.path.join(root, "static_masks", f"{name}.png"))
-            Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
-                os.path.join(image_dir, f"{name}.png"))
+            for f in factors:
+                image_dir = os.path.join(root, prefix,
+                                         "static-rgb" if test else "rgb",
+                                         f"{f}x")
+                os.makedirs(image_dir, exist_ok=True)
+                # Render through the loader's own reading of the camera.
+                pixtocam, camtoworld, distortion = kubric._camera_from_json(
+                    camera_path, f)
+                xg, yg = camera_utils.pixel_coordinates(full // f, full // f)
+                origins, dirs, _, _ = camera_utils.pixels_to_rays(
+                    xg, yg, pixtocam, camtoworld, distortion)
+                image = _sphere_world_color(origins, dirs,
+                                            radius=0.5 * world_scale)
+                if not test:
+                    # The square at this factor's scale.
+                    k = factors[0] / f
+                    ya, yb, xa, xb = (int(round(v * k)) for v in
+                                      (y0, y0 + sz, x0, x0 + sz))
+                    image[ya:yb, xa:xb] = color
+                Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
+                    os.path.join(image_dir, f"{name}.png"))
+    write_kubric_sfm(os.path.join(root, "sparse", "0"), views, full,
+                     world_scale, rng)
     return root
+
+
+# The written kubric capture's COLMAP model: points on the sphere, and
+# frames of the capture's video that neither split uses, so that points
+# seen from most of the ring have tracks past the T_SfM of
+# configs/hugs/kubric.yml (40 images).
+KUBRIC_SFM_POINTS = 4096
+KUBRIC_SFM_VIEWS = 64
+
+
+def _kubric_orientation(position):
+    """The world-to-camera rotation of an OpenCV camera (right, down,
+    forward) at `position` looking at the origin, as kubric stores it."""
+    import numpy as np
+
+    from nerf_hugs_torch.cameras import camera_utils
+    c2w = camera_utils.viewmatrix(camera_utils.normalize(position),
+                                  np.array([0.0, 0, 1]), position)
+    return (c2w[:, :3] @ np.diag([1.0, -1.0, -1.0])).T
+
+
+def write_kubric_sfm(model_dir: str, views, full: int, world_scale: float,
+                     rng) -> None:
+    """A COLMAP model (binary cameras/images/points3D) of the capture:
+    one OPENCV camera at the full resolution with SCENE_DISTORTION's lens
+    (k1, k2, p1, p2), one image per view of `views` ((name, world-to-camera
+    rotation, position); the image is {name}.png) plus ring views of the
+    same video up to KUBRIC_SFM_VIEWS in all, and KUBRIC_SFM_POINTS points
+    on the sphere. A point's track is every image that sees it: the sphere
+    faces the camera there and the point projects into the frame, where
+    the image holds it as a feature at its distorted pixel position."""
+    import numpy as np
+
+    from nerf_hugs_torch.cameras import colmap
+    views = list(views)
+    for k in range(KUBRIC_SFM_VIEWS - len(views)):
+        theta = 2 * np.pi * (k + 0.25) / max(KUBRIC_SFM_VIEWS - len(views), 1)
+        position = world_scale * np.array(
+            [2.5 * np.cos(theta), 2.5 * np.sin(theta),
+             1.2 + 0.1 * rng.randn()])
+        views.append((f"{20000 + k:05d}", _kubric_orientation(position),
+                      position))
+    xyz, rgb = _sphere_points(rng, 0.5 * world_scale, KUBRIC_SFM_POINTS)
+    normal = xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+    (k1, k2, _), (p1, p2) = (SCENE_DISTORTION["radial_distortion"],
+                             SCENE_DISTORTION["tangential_distortion"])
+    focal, centre = 0.9 * full, full / 2
+    cameras = {1: colmap.Camera(1, "OPENCV", full, full, np.array(
+        [focal, focal, centre, centre, k1, k2, p1, p2]))}
+    images, tracks = {}, [[] for _ in xyz]
+    for image_id, (name, rot, position) in enumerate(views, start=1):
+        cam = (xyz - position) @ rot.T
+        x, y = cam[:, 0] / cam[:, 2], cam[:, 1] / cam[:, 2]
+        r2 = x * x + y * y
+        radial = 1 + k1 * r2 + k2 * r2 * r2
+        u = focal * (x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)) \
+            + centre
+        v = focal * (y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y) \
+            + centre
+        seen = np.where((np.sum(normal * (position - xyz), -1) > 0)
+                        & (cam[:, 2] > 0) & (u >= 0) & (u < full)
+                        & (v >= 0) & (v < full))[0]
+        for j, pid in enumerate(seen):
+            tracks[pid].append((image_id, j))
+        w2c_t = -rot @ position
+        images[image_id] = colmap.Image(
+            image_id, colmap.rotmat2qvec(rot), w2c_t, 1, f"{name}.png",
+            np.stack([u[seen], v[seen]], -1), seen.astype(np.int64) + 1)
+    points = {j + 1: colmap.Point3D(
+        j + 1, xyz[j], rgb[j], 0.5,
+        np.array([t[0] for t in track], np.int64),
+        np.array([t[1] for t in track], np.int64))
+        for j, track in enumerate(tracks)}
+    os.makedirs(model_dir, exist_ok=True)
+    colmap.write_cameras_binary(cameras, os.path.join(model_dir,
+                                                      "cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(model_dir, "images.bin"))
+    colmap.write_points3D_binary(points, os.path.join(model_dir,
+                                                      "points3D.bin"))
 
 
 def pixel_centres(gen, n: int, size: int = 256, patch: int = 16):

@@ -20,15 +20,13 @@ card unless --device cpu is given; without a card that is an error.
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import json
 import os
 import time
 
 import numpy as np
 import torch
 
-from nerf_hugs_torch.configs import yaml_loader
+from nerf_hugs_torch.configs import gin_parser, yaml_loader
 from nerf_hugs_torch.data import check_loader, load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models.nerfacto import (NerfactoModel,
@@ -128,8 +126,8 @@ def main(argv=None):
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     checkpoints.check_model_compat(config.checkpoint_dir, config)
     checkpoints.record_model_compat(config.checkpoint_dir, config)
-    with open(os.path.join(config.checkpoint_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=1, default=str)
+    with open(os.path.join(config.checkpoint_dir, "config.gin"), "w") as f:
+        f.write(gin_parser.config_str(config))
     recorder = Recorder(config.checkpoint_dir)
 
     test_dataset = load_dataset("test", config.data_dir, config,

@@ -35,6 +35,18 @@ def test_yaml_loader_matches_jax(path):
         jyaml.load_yaml_config(str(path)))
 
 
+@pytest.mark.parametrize("path", YAMLS, ids=lambda p: p.stem)
+def test_config_gin_snapshot_matches_jax(path):
+    """The text a run writes to checkpoint_dir/config.gin, for the same
+    yaml and directories, equals JAX's gin_parser.config_str."""
+    from nerf_hugs_torch.configs import gin_parser as tgin
+    from nerf_hugs_tpu.configs import gin_parser as jgin
+    ours = driver.load_config(str(path), "data", "ckpt")
+    theirs = jyaml.load_yaml_config(str(path))
+    theirs.data_dir, theirs.checkpoint_dir = "data", "ckpt"
+    assert tgin.config_str(ours) == jgin.config_str(theirs)
+
+
 @pytest.mark.parametrize("path", NERFACTO_YAMLS, ids=lambda p: p.stem)
 def test_train_preflight_accepts_every_shipped_nerfacto_config(path):
     """The trainer's checks before it builds anything (model_type,

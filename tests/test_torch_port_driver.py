@@ -42,6 +42,12 @@ def test_python_m_train_runs_checkpoints_and_logs(tmp_path):
     assert json.loads((ckpt / "model_compat.json").read_text()) == {
         "hash_impl": "xor", "proposal_hash_impls": ["xor"]}
     assert "training complete" in (ckpt / "run_log.log").read_text()
+    # The run's config snapshot is JAX's config.gin (train.py:113-116).
+    from nerf_hugs_tpu.configs import gin_parser, yaml_loader
+    want = yaml_loader.load_yaml_config(cfg)
+    want.data_dir, want.checkpoint_dir = str(tmp_path), str(ckpt)
+    assert (ckpt / "config.gin").read_text() == gin_parser.config_str(want)
+    assert not (ckpt / "config.json").exists()
 
 
 def test_driver_resumes_and_guards_hash_impl(tmp_path, capsys):
