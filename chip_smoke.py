@@ -125,7 +125,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      vit_h, the encoder's ms per set_image, the decoder's per batch of 64
      and of 256 prompts (filters and packing included), s/image with its
      stage split at configs/hugs/kubric.yml and kubric_tpu.yml, and at
-     kubric.yml on one 768x1024 frame, with peak device memory.
+     kubric.yml on one 768x1024 frame, with peak device memory;
+  14. Mip-NeRF 360 (no ported kernel runs on its path: each run must
+     launch none): (a) the toy model of tests/test_torch_port_mipnerf360.py
+     (NerfMLP 2 x 32, PropMLP 2 x 16, 8 / 4 samples) on the card against
+     the same weights on the CPU, loss and every gradient, in fp32 (phase
+     5's tolerances) and in bf16 with remat (2e-2), as base, GLO with the
+     contraction and the reciprocal raydist, NeRF-W and HA-NeRF; (b) 8
+     steps of configs/mipnerf360/kubric_1024_base.gin, model sections
+     unchanged (NerfMLP 8 x 1024, PropMLP 4 x 256, 64 / 64 / 32 samples,
+     batch 16384), through `nerf_hugs_torch.train.main` with gin flags on
+     phase 7's kubric scene, bound only to its directories and cadence
+     (early_exit_steps, print_every, eval_dataset_limit), with a
+     torch.profiler window over steps 5-7 (device ms per step split into
+     GEMM, Adam, sort / searchsorted, reductions and elementwise, the wall
+     ms and the busy share), then an eval of 2 test images and the scoring
+     CLI, then max_dilate_weights and the lift + IPE alone at its shapes;
+     (c) the same for kubric_1024_base_tpu_bf16.gin (bf16 + remat); (d) 4
+     steps of kubric_1024_withmask.gin and of kubric_1024_robustnerf0.8.gin
+     with the Config.patch_size = 16 binding its loss needs (the carried
+     thresholds finite and moving); (e) 8 steps of
+     distractor_1024_glo4_base.gin on phase 10's capture and an eval of 2
+     images with its zero GLO, then 4 steps each of the nerfw and hanerf
+     gins; (f) phototourism_1024_base.gin on phase 12's capture, 4 train
+     and 4 finetune steps (every tensor but GloEmbed_0.weight bit-equal
+     across the finetune stage), then an eval from the finetune
+     checkpoint.
 Each train run prints its steps/s over steps 2-8 and its peak device
 memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
@@ -788,10 +813,23 @@ def stage_lines(log: str, stage: str):
              dict(t.split("=") for t in m.group(4).split())) for m in lines]
 
 
-def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
+def config_args(cfg, data_dir: str, save_dir: str) -> list:
+    """The drivers' flags on the card: `cfg` is a yaml path (--config
+    --data_dir --save_dir) or a list of gin flags (--gin_configs and
+    --gin_bindings), to which the directories are bound."""
+    if isinstance(cfg, str):
+        return ["--config", cfg, "--data_dir", data_dir, "--save_dir",
+                save_dir, "--device", "cuda"]
+    return cfg + [f"--gin_bindings=Config.data_dir = '{data_dir}'",
+                  f"--gin_bindings=Config.checkpoint_dir = '{save_dir}'",
+                  "--device", "cuda"]
+
+
+def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
                 tag: str, expected, finetune_steps: int = 0,
                 num_steps: int = 8):
-    """`num_steps` full-width steps of `cfg_path` through the trainer, and its
+    """`num_steps` full-width steps of `cfg_path` (a yaml path or gin
+    flags, config_args) through the trainer, and its
     finetune stage of `finetune_steps` when it has one; the launch
     counters are set to 0 before each stage and read after it. Checks that
     every kernel of `expected` launched in the train stage and no other
@@ -812,8 +850,7 @@ def train_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     t0 = time.time()
     driver.run_stage = counted_stage
     try:
-        train_main(["--config", cfg_path, "--data_dir", data_dir,
-                    "--save_dir", save_dir, "--device", "cuda"])
+        train_main(config_args(cfg_path, data_dir, save_dir))
     finally:
         driver.run_stage = run_stage
     torch.cuda.synchronize()
@@ -870,7 +907,7 @@ def png_psnr(pred_path: str, gt_path: str) -> float:
     return float(-10.0 * np.log10(np.mean((pred - gt) ** 2)))
 
 
-def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
+def eval_phase(torch, cfg_path, data_dir: str, save_dir: str,
                tag: str, expected, score: bool,
                summary: str = "metrics_test_8.txt", images: int = 2):
     """nerf_hugs_torch.eval of `images` test images on a run's newest
@@ -882,8 +919,7 @@ def eval_phase(torch, cfg_path: str, data_dir: str, save_dir: str,
     from nerf_hugs_torch.metrics import main as score_main
     reset_launches()
     t0 = time.time()
-    eval_main(["--config", cfg_path, "--data_dir", data_dir,
-               "--save_dir", save_dir, "--device", "cuda"])
+    eval_main(config_args(cfg_path, data_dir, save_dir))
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches()
@@ -1274,6 +1310,365 @@ def hugs_phase(torch, tmp: str, dev):
     return records
 
 
+# Phase 14: Mip-NeRF 360. The toy model of 14a (the widths of
+# tests/test_torch_port_mipnerf360.py) and its variants; the gin files'
+# directories and cadence are the only bindings of 14b-14f, beside the
+# patch size that kubric_1024_robustnerf0.8.gin needs
+# (tests/test_configs.py).
+MIP_TOY = ["NerfMLP.net_depth = 2", "NerfMLP.net_width = 32",
+           "NerfMLP.skip_layer = 1", "NerfMLP.bottleneck_width = 16",
+           "NerfMLP.net_width_viewdirs = 16",
+           "NerfMLP.net_depth_transient = 2",
+           "NerfMLP.net_width_transient = 16", "PropMLP.net_depth = 2",
+           "PropMLP.net_width = 16", "Model.num_prop_samples = 8",
+           "Model.num_nerf_samples = 4", "Config.randomized = False"]
+MIP_VARIANTS = {
+    "base": [],
+    "GLO, contract": ["Model.num_glo_features = 4",
+                      "NerfMLP.warp_fn = @coord.contract",
+                      "PropMLP.warp_fn = @coord.contract",
+                      "Model.raydist_fn = @jnp.reciprocal",
+                      "Config.distortion_loss_mult = 0.01"],
+    "NeRF-W": ["Config.transient_type = 'nerfw'",
+               "Model.num_transient_features = 8",
+               "Model.num_glo_features = 4"],
+    "HA-NeRF": ["Config.transient_type = 'hanerf'",
+                "Model.num_transient_features = 8"],
+}
+MIP_BF16 = ["Model.compute_dtype = 'bfloat16'", "Model.remat_mlp = True"]
+# Card against CPU: phase 5's tolerances in fp32 (loss relative, each
+# gradient relative to its leaf's largest entry); in bf16 the bound of the
+# port's bf16 forward test, 2e-2, as bf16 rounds after other sums on the
+# card.
+MIP_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# The profiler window of a train run: the train stage's steps 5-7.
+MIP_WINDOW = (5, 3)
+MIP_RAYS = 16384           # the gin files' batch_size
+# cuBLAS's Hopper GEMMs are named nvjet_*.
+MIP_CATEGORIES = (("gemm", r"nvjet|gemm|xmma|cutlass|cublas"),
+                  ("adam", r"adam"),
+                  ("sort/searchsorted", r"sort|radix|searchsorted"),
+                  ("reduce", r"reduce"),
+                  ("IPE and elementwise", r"."))
+
+
+def gin_flags(name: str, steps: int, *extra) -> list:
+    """configs/mipnerf360/{name}.gin, exiting after `steps` train steps,
+    printing every step and evaluating 2 test images (the yaml phases'
+    cadence keys), with the bindings `extra`."""
+    path = os.path.join(HERE, "configs", "mipnerf360", f"{name}.gin")
+    bindings = [f"Config.early_exit_steps = {steps}",
+                "Config.print_every = 1", "Config.eval_dataset_limit = 2"]
+    return [f"--gin_configs={path}"] + [
+        f"--gin_bindings={b}" for b in bindings + list(extra)]
+
+
+def mip_small_phase(torch, dev):
+    """Phase 14a: the toy Mip-NeRF 360 model on the card against the same
+    weights on the CPU, loss and every gradient, in fp32 and in bf16 with
+    remat, for each of MIP_VARIANTS."""
+    import numpy as np
+
+    from nerf_hugs_torch.configs import gin_parser
+    from nerf_hugs_torch.models import construct_model
+    from nerf_hugs_torch.train.step import compute_loss
+    from nerf_hugs_torch.utils import structs
+    rs = np.random.RandomState(0)
+    n = 256
+    d = rs.randn(n, 3).astype(np.float32)
+    column = lambda v: np.full((n, 1), v, np.float32)
+    rays = structs.Rays(
+        pix_coords=rs.rand(n, 2).astype(np.float32),
+        origins=rs.uniform(-0.3, 0.3, (n, 3)).astype(np.float32),
+        directions=d,
+        viewdirs=d / np.linalg.norm(d, axis=-1, keepdims=True),
+        radii=column(0.01), lossmult=column(1.0), static_mask=column(1.0),
+        near=column(0.05), far=column(1.2),
+        embed_idx=(np.arange(n) % 3).astype(np.int32)[:, None],
+        cam_idx=np.zeros((n, 1), np.int32))
+    batch = structs.Batch(rays=rays, rgb=rs.rand(n, 3).astype(np.float32))
+    for variant, extra in MIP_VARIANTS.items():
+        for dtype, dtype_bindings in (("float32", []),
+                                      ("bfloat16", MIP_BF16)):
+            config = gin_parser.parse_gin_configs(
+                [], MIP_TOY + extra + dtype_bindings)
+            results = {}
+            for device in ("cpu", dev):
+                model = construct_model(config, device,
+                                        torch.Generator().manual_seed(0))
+                check(model.NerfMLP_0.remat == (dtype == "bfloat16"),
+                      "the toy model does not follow remat_mlp")
+                loss, _ = compute_loss(model, batch.to(device), 0.4, config,
+                                       None)
+                loss.backward()
+                results[device] = (loss.item(), {
+                    k: p.grad.detach().cpu()
+                    for k, p in model.named_parameters()})
+            (loss_c, grads_c), (loss_g, grads_g) = results["cpu"], results[dev]
+            loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+            grad_rel = max(float((grads_g[k] - grads_c[k]).abs().max())
+                           / max(float(grads_c[k].abs().max()), 1e-30)
+                           for k in grads_c)
+            loss_tol, grad_tol = MIP_TOL[dtype]
+            print(f"check mipnerf360 toy ({variant}, {dtype}"
+                  f"{' + remat' if dtype_bindings else ''}) cuda vs cpu: "
+                  f"loss {loss_g:.6f} vs {loss_c:.6f} (rel {loss_rel:.2e}, "
+                  f"bound {loss_tol:.0e}); worst gradient error "
+                  f"{grad_rel:.2e} of the leaf's max (bound {grad_tol:.0e}) "
+                  f"over {len(grads_c)} leaves", flush=True)
+            check(math.isfinite(loss_g) and loss_rel <= loss_tol,
+                  f"toy mipnerf360 loss differs ({variant}, {dtype})")
+            check(grad_rel <= grad_tol,
+                  f"toy mipnerf360 gradients differ ({variant}, {dtype})")
+
+
+def mip_categorize(prof, steps: int) -> dict:
+    """{category: device ms per step}, the total and the five longest
+    kernels (ms per step) of a profiler window over `steps` steps."""
+    totals = {name: 0.0 for name, _ in MIP_CATEGORIES}
+    kernels = []
+    for e in prof.key_averages():
+        t = e.device_time_total / 1e3 / steps
+        if t <= 0 or e.device_type.name != "CUDA":
+            continue
+        kernels.append((t, e.key))
+        for name, pattern in MIP_CATEGORIES:
+            if re.search(pattern, e.key, re.IGNORECASE):
+                totals[name] += t
+                break
+    kernels.sort(reverse=True)
+    return {"split": {k: round(v, 3) for k, v in totals.items()},
+            "device_ms": round(sum(totals.values()), 3),
+            "longest": [(k[:70], round(t, 3)) for t, k in kernels[:5]]}
+
+
+def mip_train(torch, flags: list, data_dir: str, save_dir: str, tag: str,
+              steps: int, finetune_steps: int = 0, profile: bool = False):
+    """train_phase on gin flags (no ported kernel may launch); with
+    `profile`, a torch.profiler window over MIP_WINDOW's train steps,
+    whose device ms per step, wall ms per step (host clock, synchronised
+    at both ends) and busy share (device over wall) are printed and
+    returned with the peak device memory and steps/s (outside the
+    window)."""
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from nerf_hugs_torch.train import step as step_lib
+    first, count = MIP_WINDOW
+    window = {}
+    train_step = step_lib.train_step
+    calls = [0]
+
+    def windowed(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] == first:
+            torch.cuda.synchronize()
+            window["prof"] = profiler(activities=[ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.time()
+        out = train_step(*args, **kwargs)
+        if calls[0] == first + count - 1:
+            torch.cuda.synchronize()
+            window["wall"] = time.time() - window["t0"]
+            window["prof"].__exit__(None, None, None)
+        return out
+
+    if profile:
+        step_lib.train_step = windowed
+    try:
+        launches, terms = train_phase(torch, flags, data_dir, save_dir, tag,
+                                      (), finetune_steps=finetune_steps,
+                                      num_steps=steps)
+    finally:
+        step_lib.train_step = train_step
+    # Steps/s over the train steps after the first, those of the profiler
+    # window left out.
+    with open(os.path.join(save_dir, "run_log.log")) as f:
+        rates = [s[2] for s in stage_lines(f.read(), "train")[1:]
+                 if not (profile and first <= s[0] < first + count)]
+    reading = {"steps_per_s": (len(rates) / sum(1 / r for r in rates)),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if profile:
+        check("wall" in window, f"the profiler window did not close: "
+                                f"{calls[0]} steps")
+        split = mip_categorize(window["prof"], count)
+        reading.update(split)
+        reading["wall_ms"] = window["wall"] * 1e3 / count
+        reading["busy"] = split["device_ms"] / reading["wall_ms"]
+        check(split["device_ms"] > 0, f"the {tag} trace has no device time")
+        print(f"profile ({tag}), train steps {first}-{first + count - 1}: "
+              f"device {split['device_ms']:.3f} ms per step, wall "
+              f"{reading['wall_ms']:.3f} ms per step, busy share "
+              f"{reading['busy']:.3f}; split {split['split']}; longest "
+              f"{split['longest']}", flush=True)
+    return launches, terms, reading
+
+
+def mip_forward_flops(name: str) -> float:
+    """The GEMM operations of one forward pass of a train batch of
+    configs/mipnerf360/{name}.gin: each MLP's multiply-adds a sample (a
+    skip concatenation widens the layer after it) x 2 x its samples."""
+    from nerf_hugs_torch.configs import gin_parser
+    from nerf_hugs_torch.core import geopoly
+    config = gin_parser.parse_gin_configs([os.path.join(
+        HERE, "configs", "mipnerf360", f"{name}.gin")])
+    mc = config.model
+
+    def stack(d_in, width, depth, skip):
+        macs, d = 0, d_in
+        for i in range(depth):
+            macs += d * width
+            d = width + (d_in if i % skip == 0 and i > 0 else 0)
+        return macs, d
+
+    def mlp_macs(c, glo):
+        feat = 2 * len(geopoly.generate_basis(
+            c.basis_shape, c.basis_subdivisions)) * (c.max_deg_point
+                                                     - c.min_deg_point)
+        macs, d = stack(feat, c.net_width, c.net_depth, c.skip_layer)
+        macs += d
+        if c.disable_rgb:
+            return macs
+        macs += d * c.bottleneck_width
+        view, d = stack(c.bottleneck_width + 3 + 6 * c.deg_view + glo,
+                        c.net_width_viewdirs, c.net_depth_viewdirs,
+                        c.skip_layer_dir)
+        return macs + view + d * c.num_rgb_channels
+
+    rays = config.batch_size
+    return 2 * rays * (
+        mlp_macs(config.nerf_mlp, mc.num_glo_features) * mc.num_nerf_samples
+        + mlp_macs(config.prop_mlp, 0) * mc.num_prop_samples
+        * (mc.num_levels - 1))
+
+
+def mip_micro_phase(torch, dev):
+    """Phase 14b's passes outside the GEMMs at kubric_1024_base's shapes,
+    each timed alone (median of 10, CUDA events): max_dilate_weights at
+    the second proposal level ([16384, 65] endpoints, its [16384, 193, 64]
+    mask), and the lift + integrated positional encoding of the NerfMLP
+    ([16384, 32] samples) and of the PropMLP ([16384, 64])."""
+    from nerf_hugs_torch.core import coord, geopoly, stepfun
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rays = MIP_RAYS
+    t = torch.sort(torch.rand(rays, 65, generator=gen, device=dev),
+                   dim=-1).values
+    t[:, 0], t[:, -1] = 0.0, 1.0
+    w = torch.rand(rays, 64, generator=gen, device=dev)
+    w = w / w.sum(-1, keepdim=True)
+    dilate = median_ms(lambda: stepfun.max_dilate_weights(
+        t, w, 0.0025 + 0.5 / 64, domain=(0.0, 1.0), renormalize=True))
+    basis = torch.tensor(geopoly.generate_basis("icosahedron", 2).T.copy(),
+                         dtype=torch.float32, device=dev)
+    ipe = {}
+    for name, samples in (("NerfMLP", 32), ("PropMLP", 64)):
+        mean = torch.randn(rays, samples, 3, generator=gen, device=dev)
+        a = 0.01 * torch.randn(rays, samples, 3, 3, generator=gen,
+                               device=dev)
+        cov = a @ a.transpose(-1, -2)
+        ipe[name] = median_ms(lambda: coord.integrated_pos_enc(
+            *coord.lift_and_diagonalize(mean, cov, basis), 0, 12))
+    print(f"mipnerf360 passes at kubric_1024_base's shapes: "
+          f"max_dilate_weights {dilate:.3f} ms ([16384, 65] -> [16384, 193] "
+          f"endpoints); lift + IPE {ipe['NerfMLP']:.3f} ms (NerfMLP, "
+          f"[16384, 32] samples -> 504 features), {ipe['PropMLP']:.3f} ms "
+          f"(PropMLP, [16384, 64])", flush=True)
+
+
+def mip_phase(torch, tmp: str, scene: str, distractor: str,
+              phototourism: str, dev):
+    """Phase 14: Mip-NeRF 360 (14a the toy model card vs CPU; 14b-14f the
+    shipped gin files at full width through the drivers)."""
+    mip_small_phase(torch, dev)
+    exp = lambda name: os.path.join(tmp, "exp", f"mip_{name}")
+    # 14b: kubric_1024_base, fp32.
+    base = gin_flags("kubric_1024_base", 8)
+    _, _, fp32 = mip_train(torch, base, scene, exp("base"),
+                           "Mip-NeRF 360 kubric_1024_base, fp32", 8,
+                           profile=True)
+    eval_phase(torch, base, scene, exp("base"), "Mip-NeRF 360 base", (),
+               score=True)
+    mip_micro_phase(torch, dev)
+    # 14c: the bf16 + remat overlay.
+    _, _, bf16 = mip_train(torch, gin_flags("kubric_1024_base_tpu_bf16", 8),
+                           scene, exp("bf16"),
+                           "Mip-NeRF 360 kubric_1024_base_tpu_bf16", 8,
+                           profile=True)
+    # GEMM work a step: the forward, the backward's two products, and
+    # under remat the forward once more.
+    forward = mip_forward_flops("kubric_1024_base")
+    print("mipnerf360 kubric_1024_base: " + "; ".join(
+        f"{tag} {r['steps_per_s']:.3f} steps/s, device {r['device_ms']:.3f}"
+        f" ms per step, busy {r['busy']:.3f}, peak {r['peak_gib']:.2f} GiB, "
+        f"GEMMs {passes * forward / 1e12:.2f} TFLOP in "
+        f"{r['split']['gemm']:.3f} ms "
+        f"({passes * forward / r['split']['gemm'] / 1e9:.1f} TFLOP/s)"
+        for tag, r, passes in (("fp32", fp32, 3), ("bf16 + remat", bf16, 4)))
+        + f"; bf16 / fp32 device time "
+        f"{bf16['device_ms'] / fp32['device_ms']:.3f}", flush=True)
+    # 14d: withmask, and RobustNeRF with the patch its loss needs.
+    mip_train(torch, gin_flags("kubric_1024_withmask", 4), scene,
+              exp("withmask"), "Mip-NeRF 360 kubric_1024_withmask", 4)
+    _, terms, _ = mip_train(
+        torch, gin_flags("kubric_1024_robustnerf0.8", 4,
+                         "Config.patch_size = 16"),
+        scene, exp("robustnerf"), "Mip-NeRF 360 kubric_1024_robustnerf0.8",
+        4)
+    thresholds = [[float(v) for v in t["inlier_threshold"].split(",")]
+                  for t in terms["train"]]
+    print(f"mipnerf360 robust thresholds handed on by steps 1..4 (one per "
+          f"level): {thresholds}", flush=True)
+    check(all(math.isfinite(v) and v > 0 for t in thresholds for v in t),
+          f"non-finite RobustNeRF thresholds: {thresholds}")
+    check(thresholds[0] != [1.0] * 3 and any(t != thresholds[0]
+                                             for t in thresholds[1:]),
+          f"the RobustNeRF threshold does not move: {thresholds}")
+    # 14e: the distractor trio on phase 10's capture.
+    glo = gin_flags("distractor_1024_glo4_base", 8)
+    _, terms, _ = mip_train(torch, glo, distractor, exp("distractor"),
+                            "Mip-NeRF 360 distractor_1024_glo4_base", 8)
+    check(all(float(t["distortion"]) > 0 for t in terms["train"]),
+          f"no distortion term: {terms['train']}")
+    eval_phase(torch, glo, distractor, exp("distractor"),
+               "Mip-NeRF 360 distractor glo4, zero GLO", (), score=False)
+    _, terms, _ = mip_train(torch, gin_flags("distractor_1024_glo4_nerfw", 4),
+                            distractor, exp("nerfw"),
+                            "Mip-NeRF 360 distractor_1024_glo4_nerfw", 4)
+    check(all(math.isfinite(float(t[k])) for t in terms["train"]
+              for k in ("beta", "density")),
+          f"the NeRF-W steps lack finite beta/density terms: {terms}")
+    _, terms, _ = mip_train(torch, gin_flags("distractor_1024_glo4_hanerf",
+                                             4),
+                            distractor, exp("hanerf"),
+                            "Mip-NeRF 360 distractor_1024_glo4_hanerf", 4)
+    check(all(float(t["mask_size"]) > 0 for t in terms["train"]),
+          f"the HA-NeRF steps have no mask_size term: {terms}")
+    # 14f: phototourism_1024_base, its train and finetune stages.
+    photo = gin_flags("phototourism_1024_base", 4,
+                      "Config.finetune_max_steps = 4")
+    _, terms, _ = mip_train(torch, photo, phototourism, exp("photo"),
+                            "Mip-NeRF 360 phototourism_1024_base", 4,
+                            finetune_steps=4)
+    check(all(set(t) == {"data"} for t in terms["finetune"]),
+          f"the finetune stage's loss is not the data term alone: {terms}")
+    before = torch.load(os.path.join(exp("photo"), "checkpoint_4.pt"),
+                        weights_only=True)["model"]
+    after = torch.load(os.path.join(exp("photo"), "finetune",
+                                    "checkpoint_4.pt"),
+                       weights_only=True)["model"]
+    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    with open(os.path.join(exp("photo"), "run_log.log")) as f:
+        rates = [s[2] for s in stage_lines(f.read(), "finetune")[1:]]
+    print(f"finetune (Mip-NeRF 360 phototourism): 4 steps, steps/s after "
+          f"the first {len(rates) / sum(1 / r for r in rates):.3f}; losses "
+          f"{[t['data'] for t in terms['finetune']]}; moved {moved} of "
+          f"{len(before)} tensors", flush=True)
+    check(moved == ["GloEmbed_0.weight"],
+          f"the finetune stage moved {moved}, not GloEmbed_0 alone")
+    eval_phase(torch, photo, phototourism, exp("photo"),
+               "Mip-NeRF 360 phototourism finetuned", (), score=False,
+               summary="metrics_test_finetune_4.txt")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
@@ -1366,6 +1761,7 @@ def main() -> None:
             phototourism, os.path.join(tmp, "exp", "nerfw"))
         sam_card_phase(torch, dev)
         hugs_phase(torch, tmp, dev)
+        mip_phase(torch, tmp, scene, distractor, phototourism, dev)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

@@ -3,12 +3,12 @@
 The JAX package (`nerf_hugs_tpu`) stays the numerical reference; this package
 mirrors its layout module by module and imports nothing of jax or of the JAX
 package (it keeps its own copies of the jax-free modules it needs). Ported so
-far, in the yaml dialect on the `kubric`, `distractor` and `phototourism`
-loaders and the procedural `synthetic` and `synthetic_distractor` scenes:
-the nerfacto train step with appearance and transient embeddings and the
-whole transient zoo (withmask, RobustNeRF, NeRF-W, HA-NeRF), the finetune
-stage, eval and scoring, the dense-level forward microbenchmark, and HuGS
-static-mask generation with SAM.
+far, on the `kubric`, `distractor` and `phototourism` loaders and the
+procedural `synthetic` and `synthetic_distractor` scenes: the nerfacto train
+step (yaml dialect) and Mip-NeRF 360 (gin dialect) with their embeddings and
+the whole transient zoo (withmask, RobustNeRF, NeRF-W, HA-NeRF), the
+finetune stage, eval and scoring, the dense-level forward microbenchmark,
+and HuGS static-mask generation with SAM.
 
 Layout:
   core/      ray math on tensors: step functions, warps, volume rendering
@@ -19,9 +19,9 @@ Layout:
              pixel->ray casting with lens distortion and fisheye cameras
   data/      host-side ray-batch producer (prefetch thread, native sampler),
              the kubric, distractor, phototourism and synthetic loaders
-  models/    nerfacto fields + proposal sampling, embeddings, HA-NeRF's
-             implicit mask, NeRF-W's transient head; flax->torch weight
-             converter
+  models/    nerfacto fields + proposal sampling, Mip-NeRF 360's PosEnc
+             MLPs + proposal sampling, embeddings, HA-NeRF's implicit
+             masks, NeRF-W's transient heads; flax->torch weight converter
   losses/    data / RobustNeRF / NeRF-W / HA-NeRF / interlevel / distortion
              losses
   train/     Adam, the finetune partition, train step, checkpoints, chunked
@@ -31,8 +31,8 @@ Layout:
   hugs/      HuGS: SAM (ViT encoder, prompt encoder, mask decoder, official
              weights, predictor, automatic mask generator), the heuristics
              and the static-mask CLI (`python -m nerf_hugs_torch.hugs`)
-  configs/   the config tree, the nerfacto yaml loader and the config.gin
-             snapshot
+  configs/   the config tree, the nerfacto yaml loader, the gin parser and
+             the config.gin snapshot
   native/    the threaded ray sampler's C++ source (g++, ctypes)
   tools/     microbenchmarks (`bench_fwd_copies`, `bench_hashgrid`,
              `bench_fused_mlp`, `bench_sam`) and their inputs

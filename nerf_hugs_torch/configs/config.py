@@ -6,11 +6,15 @@ package's: the yaml files and the checkpoints' model_compat.json depend on
 them (tests/test_torch_port_configs.py holds the two loaders equal on every
 configs/nerfacto/*.yml). YAML files (nerfacto/configs/*.yml) load through
 configs.yaml_loader; base:/model: sections map onto Config +
-Config.nerfacto (nerfacto/utils/config_utils.py:8-91). The gin dialect and
-the JAX package's callable registries are not part of the port.
+Config.nerfacto (nerfacto/utils/config_utils.py:8-91); gin files
+(configs/mipnerf360/*.gin) through configs.gin_parser, whose sections
+Config. / Model. / NerfMLP. / PropMLP. map onto Config / Config.model /
+Config.nerf_mlp / Config.prop_mlp.
 
 Callables are stored as *names* (e.g. raydist_fn='reciprocal',
-warp_fn='contract'), keeping the config tree plain python scalars.
+warp_fn='contract'), keeping the config tree plain python scalars; the
+registries at the end resolve them to torch functions at model
+construction, as the JAX package's resolve to jax functions.
 """
 
 from __future__ import annotations
@@ -350,3 +354,46 @@ class Config:
         if self.model_type == "nerf":
             return 2  # coarse/fine
         return self.model.num_levels
+
+
+# Callable registries resolved by models at construction (the torch
+# counterparts of nerf_hugs_tpu/configs/config.py:359-395).
+def resolve_activation(name: str):
+    import torch
+    from torch.nn import functional as F
+    if name in ("exp", "safe_exp"):
+        from nerf_hugs_torch.core import math as nh_math
+        return nh_math.safe_exp
+    # jax.nn.gelu defaults to the tanh approximation.
+    table = {
+        "relu": F.relu, "softplus": F.softplus, "sigmoid": torch.sigmoid,
+        "silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "none": None, "identity": lambda x: x,
+    }
+    if name not in table:
+        raise ValueError(f"unknown activation {name!r}")
+    return table[name]
+
+
+def resolve_raydist_fn(name: Optional[str]):
+    """None, 'piecewise' or one of the torch functions whose __name__
+    core.coord.construct_ray_warps reads to find its inverse."""
+    import torch
+    if name is None:
+        return None
+    if name == "piecewise":
+        return "piecewise"
+    table = {"reciprocal": torch.reciprocal, "log": torch.log,
+             "exp": torch.exp, "sqrt": torch.sqrt, "square": torch.square}
+    if name not in table:
+        raise ValueError(f"unknown raydist_fn {name!r}")
+    return table[name]
+
+
+def resolve_warp_fn(name: Optional[str]):
+    if name is None:
+        return None
+    if name == "contract":
+        from nerf_hugs_torch.core import coord
+        return coord.contract
+    raise ValueError(f"unknown warp_fn {name!r}")

@@ -14,6 +14,37 @@ import numpy as np
 import torch
 
 
+# Trig arguments are range-reduced into this window first
+# (nerf_hugs_tpu/core/math.py:18): the features are periodic anyway.
+_TRIG_PERIOD_CAP = 100.0 * math.pi
+
+
+def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The JAX package's precision=HIGHEST matmul: a plain fp32 matmul,
+    TF32 being pinned off (utils/device.py)."""
+    return torch.matmul(a, b)
+
+
+def _range_reduce(x: torch.Tensor) -> torch.Tensor:
+    """x where |x| < cap, else x mod cap (the sign of the divisor, as
+    jnp's `%`), 0 where that overflows to a non-finite value."""
+    reduced = torch.fmod(x, _TRIG_PERIOD_CAP)
+    reduced = torch.where(reduced < 0, reduced + _TRIG_PERIOD_CAP, reduced)
+    reduced = torch.where(torch.isfinite(reduced), reduced,
+                          torch.zeros_like(reduced))
+    return torch.where(torch.abs(x) < _TRIG_PERIOD_CAP, x, reduced)
+
+
+def safe_sin(x: torch.Tensor) -> torch.Tensor:
+    """sin(x) with the argument range-reduced."""
+    return torch.sin(_range_reduce(x))
+
+
+def safe_cos(x: torch.Tensor) -> torch.Tensor:
+    """cos(x) with the argument range-reduced."""
+    return torch.cos(_range_reduce(x))
+
+
 class _SafeExp(torch.autograd.Function):
     """exp(min(x, 88)) with the unclamped slope exp(min(x, 88)) * dx."""
 

@@ -52,6 +52,46 @@ def lossfun_outer(t, w, t_env, w_env, eps=_EPS):
     return torch.clamp(w - w_outer, min=0) ** 2 / (w + eps)
 
 
+def weight_to_pdf(t, w, eps=_EPS ** 2):
+    """Bin weights -> densities (divide by bin width)."""
+    return w / torch.clamp(t[..., 1:] - t[..., :-1], min=eps)
+
+
+def pdf_to_weight(t, p):
+    """Bin densities -> weights (multiply by bin width)."""
+    return p * (t[..., 1:] - t[..., :-1])
+
+
+def max_dilate(t, w, dilation, domain=(-float("inf"), float("inf"))):
+    """Max-pool a non-negative step function outward by `dilation`: each
+    bin [t0, t1) grows to [t0 - d, t1 + d), and the dilated function at a
+    point is the max over the grown bins that cover it. Like JAX, this
+    builds the [..., 3n + 1, n] coverage mask."""
+    lo = t[..., :-1] - dilation
+    hi = t[..., 1:] + dilation
+    t_d = torch.sort(torch.cat([t, lo, hi], dim=-1), dim=-1).values
+    t_d = torch.clamp(t_d, *domain)
+    covered = ((lo[..., None, :] <= t_d[..., None])
+               & (hi[..., None, :] > t_d[..., None]))
+    w_d = torch.amax(torch.where(covered, w[..., None, :],
+                                 torch.zeros_like(w[..., None, :])),
+                     dim=-1)[..., :-1]
+    return t_d, w_d
+
+
+def max_dilate_weights(t, w, dilation,
+                       domain=(-float("inf"), float("inf")),
+                       renormalize=False, eps=_EPS ** 2):
+    """Dilate weights in density space, so that mass scales with width."""
+    p = weight_to_pdf(t, w)
+    t_d, p_d = max_dilate(t, p, dilation, domain=domain)
+    w_d = pdf_to_weight(t_d, p_d)
+    if renormalize:
+        w_d = w_d / torch.clamp(torch.sum(w_d, dim=-1, keepdim=True),
+                                min=eps)
+    return t_d, w_d
+
+
 def integrate_weights(w):
     """CDF endpoints of weights assumed to sum to 1: starts at 0, ends at 1."""
     cdf = torch.clamp(torch.cumsum(w[..., :-1], dim=-1), max=1)
@@ -60,18 +100,22 @@ def integrate_weights(w):
     return torch.cat([pad, cdf, torch.ones_like(pad)], dim=-1)
 
 
-def invert_cdf(u, t, w_logits):
-    """Map u in [0,1) through the inverse CDF of softmax(w_logits) over t.
+def invert_cdf(u, t, w_logits, use_gpu_resampling=False):
+    """Map u in [0,1) through the inverse CDF of softmax(w_logits) over t,
+    with `interp` (use_gpu_resampling) or `sorted_interp`, as JAX picks.
 
     Rays whose logits are all -inf fall back to a uniform CDF."""
     all_masked = torch.all(torch.isneginf(w_logits), dim=-1, keepdim=True)
     w_logits = torch.where(all_masked, torch.ones_like(w_logits), w_logits)
     w = torch.softmax(w_logits, dim=-1)
-    return nh_math.sorted_interp(u, integrate_weights(w), t)
+    interp_fn = (nh_math.interp if use_gpu_resampling
+                 else nh_math.sorted_interp)
+    return interp_fn(u, integrate_weights(w), t)
 
 
 def sample(rng: Optional[torch.Generator], t, w_logits, num_samples,
-           single_jitter=False, deterministic_center=False):
+           single_jitter=False, deterministic_center=False,
+           use_gpu_resampling=False):
     """Draw `num_samples` points from the step-function PDF via inverse CDF.
 
     rng=None gives stratified deterministic samples (linspace of the CDF, or
@@ -93,19 +137,21 @@ def sample(rng: Optional[torch.Generator], t, w_logits, num_samples,
         jitter = torch.rand(t.shape[:-1] + (d,), generator=rng, device=dev)
         u = torch.linspace(0, 1 - u_max, num_samples, device=dev) \
             + jitter * max_jitter
-    return invert_cdf(u, t, w_logits)
+    return invert_cdf(u, t, w_logits, use_gpu_resampling)
 
 
 def sample_intervals(rng: Optional[torch.Generator], t, w_logits,
                      num_samples, single_jitter=False,
-                     domain=(-float("inf"), float("inf"))):
+                     domain=(-float("inf"), float("inf")),
+                     use_gpu_resampling=False):
     """Sample `num_samples` intervals whose centers follow the PDF; returns
     num_samples+1 sorted endpoints, the outer two reflected around the end
     centers and clamped to `domain`."""
     if num_samples <= 1:
         raise ValueError(f"need num_samples > 1, got {num_samples}")
     centers = sample(rng, t, w_logits, num_samples, single_jitter,
-                     deterministic_center=True)
+                     deterministic_center=True,
+                     use_gpu_resampling=use_gpu_resampling)
     mid = 0.5 * (centers[..., 1:] + centers[..., :-1])
     first = torch.clamp(2 * centers[..., :1] - mid[..., :1], min=domain[0])
     last = torch.clamp(2 * centers[..., -1:] - mid[..., -1:], max=domain[1])

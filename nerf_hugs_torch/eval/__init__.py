@@ -1,4 +1,4 @@
-"""Evaluation: the yaml-dialect driver (driver.py), run as
+"""Evaluation: the driver of the yaml and gin dialects (driver.py), run as
 `python -m nerf_hugs_torch.eval`."""
 
 

@@ -1,25 +1,29 @@
-"""The yaml-dialect evaluation driver of the port.
+"""The evaluation driver of the port, in both config dialects of eval.py.
 
     python -m nerf_hugs_torch.eval --config configs/nerfacto/X.yml \\
         --data_dir DATA --save_dir CKPT [--device cuda|cpu] \\
         [--eval_data train|test] [--original_name] [--only_pred_gt]
+    python -m nerf_hugs_torch.eval --gin_configs=configs/mipnerf360/X.gin \\
+        --gin_bindings="Config.data_dir = 'DATA'" \\
+        --gin_bindings="Config.checkpoint_dir = 'CKPT'" [--logtostderr] \\
+        [--device cuda|cpu] [--eval_data train|test] [--original_name] \\
+        [--only_pred_gt]
 
-Keeps the flow of the repo's eval.py (nerfacto yaml dialect) for one
-process: restore the newest checkpoint, preferring the finetune stage's,
-render every image of the split through the chunked renderer at the
-train_frac the checkpoint was trained at, colour-correct against GT in
-float64, quantize to the uint8 grid before the metrics
-(eval_quantize_metrics), crop eval_crop_borders, score psnr/ssim and their
+Keeps the flow of the repo's eval.py for one process: restore the newest
+checkpoint, preferring the finetune stage's, render every image of the
+split through the chunked renderer at the train_frac the checkpoint was
+trained at, colour-correct against GT in float64, quantize to the uint8
+grid before the metrics (eval_quantize_metrics), crop eval_crop_borders, score psnr/ssim and their
 colour-corrected *_cc twins, and save `{name}_color.png`, `_gt.png`,
 `_color_cc.png`, `_depth.tiff` and `_metrics.txt` per image plus
 `metrics_{split}_{stage}{step}.txt` beside the checkpoints.
 `--original_name --only_pred_gt` writes only the `{name}_color/gt.png`
 pairs into `{save_dir}/{split}_preds/`, the HuGS pipeline's input. With
 eval_only_once false it polls for new checkpoints until the last one the
-run will write. The nerfacto model renders no per-ray buffers, so
-eval_save_ray_data has nothing to save; the gin dialect (Mip-NeRF 360) is
-not ported. It runs on the card unless --device cpu is given; without a
-card that is an error.
+run will write. With eval_save_ray_data, `{name}_rays.npz` holds every
+level's ray bags (`ray_sdist_0`, ...; Mip-NeRF 360 renders them, nerfacto
+none), as eval.py:196-203 writes them. It runs on the card unless
+--device cpu is given; without a card that is an error.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
-from nerf_hugs_torch.models.nerfacto import NerfactoModel
+from nerf_hugs_torch.models import construct_model
 from nerf_hugs_torch.train import checkpoints
-from nerf_hugs_torch.train.driver import load_config, preflight
+from nerf_hugs_torch.train.driver import (add_config_args,
+                                          load_config_from_args, preflight)
 from nerf_hugs_torch.train.render_image import render_image
 from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
@@ -45,12 +50,9 @@ from nerf_hugs_torch.utils.record import Recorder
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m nerf_hugs_torch.eval",
-        description="Render a split of a nerfacto run, score it and save "
-                    "the images.")
-    parser.add_argument("--config", required=True, help="yaml config path")
-    parser.add_argument("--data_dir", required=True)
-    parser.add_argument("--save_dir", required=True, help="checkpoint dir")
-    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        description="Render a split of a run, score it and save the "
+                    "images.")
+    add_config_args(parser)
     parser.add_argument("--eval_data", default=None, choices=("train", "test"))
     parser.add_argument("--original_name", action="store_true")
     parser.add_argument("--only_pred_gt", action="store_true")
@@ -109,14 +111,14 @@ def _save_outputs(out_dir, name, rgb, gt, rgb_cc, rendering, metrics,
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
-    config = load_config(args.config, args.data_dir, args.save_dir)
+    config = load_config_from_args(args)
     if args.eval_data:
         config.eval_data = args.eval_data
     preflight(config)
     pin_fp32_precision()
 
-    model = NerfactoModel(config, device,
-                          torch.Generator().manual_seed(config.seed))
+    model = construct_model(config, device,
+                            torch.Generator().manual_seed(config.seed))
     dataset = load_dataset(config.eval_data, config.data_dir, config,
                            is_training=False)
     harness = nh_image.MetricHarness(device=device)
@@ -180,6 +182,12 @@ def main(argv=None):
                 all_metrics.append(metrics)
                 recorder.print("  " + " ".join(
                     f"{k}={v:.4f}" for k, v in metrics.items()))
+            ray_bags = {k: v for k, v in rendering.items()
+                        if k.startswith("ray_")}
+            if config.eval_save_ray_data and ray_bags:
+                np.savez(os.path.join(out_dir, f"{name}_rays.npz"),
+                         **{f"{k}_{i}": arr for k, v in ray_bags.items()
+                            for i, arr in enumerate(v)})
             if config.eval_save_output:
                 _save_outputs(out_dir, name, rgb, gt, rgb_cc, rendering,
                               metrics, args.only_pred_gt)

@@ -1,0 +1,27 @@
+"""Model registry: one constructor per backbone, one call contract.
+
+Every model is an nn.Module with
+  forward(rays, train_frac, compute_extras, rng, zero_glo, zero_tra)
+    -> (renderings: list[dict], ray_history: list[dict])
+(nerf_hugs_tpu/models/__init__.py), so the train step, the loss zoo and
+the chunked renderer do not depend on the backbone.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def construct_model(config, device, generator: torch.Generator):
+    """The config's backbone, its parameters drawn from `generator`."""
+    if config.model_type == "mipnerf360":
+        from nerf_hugs_torch.models.mipnerf360 import MipNerf360Model
+        return MipNerf360Model(config, device, generator)
+    if config.model_type == "nerfacto":
+        from nerf_hugs_torch.models.nerfacto import NerfactoModel
+        return NerfactoModel(config, device, generator)
+    if config.model_type == "nerf":
+        raise NotImplementedError(
+            "model_type 'nerf' is not ported yet (ROADMAP.md Queue 1 item "
+            "13)")
+    raise ValueError(f"unknown model_type {config.model_type!r}")

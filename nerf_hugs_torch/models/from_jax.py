@@ -22,6 +22,14 @@ NerfactoModel.state_dict() of this package:
 A module holds Dense_k layers or w_i weights, never both; any other leaf
 is refused.
 
+convert_mipnerf360_params maps the flax tree of nerf_hugs_tpu's
+MipNerf360Model onto MipNerf360Model.state_dict() of this package:
+  {NerfMLP_0,PropMLP_0,ImplicitMask_0}/Dense_k/kernel [in, out]
+                                         -> {..}.Dense_k.weight [out, in]
+  {..}/Dense_k/bias                      -> {..}.Dense_k.bias
+  {GloEmbed_0,TransientEmbed_0}/embedding [num, dim]
+                                         -> {..}.weight, as it is
+
 sam_state_dict maps the flax tree of nerf_hugs_tpu's SAM
 (hugs/sam/modeling.py) onto segment-anything's state-dict keys, which the
 port's Sam uses (block_i -> blocks.i, layer_i -> layers.i, hyper_mlp_i ->
@@ -103,6 +111,33 @@ def convert_nerfacto_params(flax_params: Dict[str, Any]
                 prefix = f"{top}.{name}.layers.{int(m.group(1))}"
                 state[f"{prefix}.weight"] = as_tensor(np.asarray(p["kernel"]).T)
                 state[f"{prefix}.bias"] = as_tensor(p["bias"])
+    return state
+
+
+_MIPNERF360_MLPS = ("NerfMLP_0", "PropMLP_0", "ImplicitMask_0")
+_MIPNERF360_EMBEDS = ("GloEmbed_0", "TransientEmbed_0")
+
+
+def convert_mipnerf360_params(flax_params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """flax params (nested dicts of numpy arrays, with or without the top
+    'params' key) -> a state_dict for nerf_hugs_torch MipNerf360Model."""
+    params = flax_params.get("params", flax_params)
+    state: Dict[str, torch.Tensor] = {}
+    as_tensor = lambda a: torch.from_numpy(np.array(a, np.float32))
+    for top, leaves in params.items():
+        if top in _MIPNERF360_EMBEDS and set(leaves) == {"embedding"}:
+            state[f"{top}.weight"] = as_tensor(leaves["embedding"])
+            continue
+        if top not in _MIPNERF360_MLPS:
+            raise ValueError(f"unexpected flax module {top}")
+        for dense, p in leaves.items():
+            if (_DENSE_RE.match(dense) is None or not hasattr(p, "items")
+                    or set(p) != {"kernel", "bias"}):
+                raise ValueError(f"unexpected flax module {top}/{dense}")
+            state[f"{top}.{dense}.weight"] = as_tensor(
+                np.asarray(p["kernel"]).T)
+            state[f"{top}.{dense}.bias"] = as_tensor(p["bias"])
     return state
 
 

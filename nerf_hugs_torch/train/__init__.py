@@ -1,5 +1,6 @@
 """Training: Adam, the finetune partition and the train step (step.py),
-checkpoints, chunked rendering, and the two-stage yaml driver (driver.py),
+checkpoints, chunked rendering, and the two-stage driver of the yaml and
+gin dialects (driver.py),
 run as `python -m nerf_hugs_torch.train`."""
 
 

@@ -1,17 +1,27 @@
-"""The yaml-dialect training driver of the port.
+"""The training driver of the port, in both config dialects of train.py.
 
     python -m nerf_hugs_torch.train --config configs/nerfacto/X.yml \\
         --data_dir DATA --save_dir CKPT [--device cuda|cpu]
+    python -m nerf_hugs_torch.train \\
+        --gin_configs=configs/mipnerf360/X.gin \\
+        --gin_bindings="Config.data_dir = 'DATA'" \\
+        --gin_bindings="Config.checkpoint_dir = 'CKPT'" [--logtostderr] \\
+        [--device cuda|cpu]
 
-Keeps the loop of the repo's train.py (nerfacto yaml dialect): the stages
+The yaml dialect builds nerfacto, the gin dialect Mip-NeRF 360 (or
+whatever Config.model_type names); --data_dir / --save_dir override either
+dialect's directories, and both must end up set (train.py:45-60).
+Keeps the loop of the repo's train.py: the stages
 ["train"] and, with finetune_enable, ["finetune"] (the finetune_params
 groups re-optimised on the left half of the test images, a data-only
 loss, train_frac pinned to 1, checkpoints in {save_dir}/finetune/);
 early_exit_steps (train stage only), print_every lines with steps/s and
 rays/s, step-numbered checkpoints with the model-compat sidecar, resume
 from the newest checkpoint of each stage, RobustNeRF's inlier thresholds
-carried from step to step on the device, and the in-train eval window,
-which reports PSNR and SSIM through the MetricHarness. Tensorboard
+carried from step to step on the device, and the in-train eval, which
+reports PSNR and SSIM through the MetricHarness: a rotating window of
+eval_images_num test images for nerfacto, one rotating test image
+(`next(test_dataset)`, train.py:306-307) for Mip-NeRF 360. Tensorboard
 summaries wait (ROADMAP.md Queue 1 item 10b).
 Every printed line also lands in {save_dir}/run_log.log. It runs on the
 card unless --device cpu is given; without a card that is an error.
@@ -29,9 +39,7 @@ import torch
 from nerf_hugs_torch.configs import gin_parser, yaml_loader
 from nerf_hugs_torch.data import check_loader, load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
-from nerf_hugs_torch.models.nerfacto import (NerfactoModel,
-                                             check_transient_config,
-                                             module_names)
+from nerf_hugs_torch.models import construct_model, mipnerf360, nerfacto
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
 from nerf_hugs_torch.train.render_image import render_image
@@ -39,14 +47,28 @@ from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
 from nerf_hugs_torch.utils.record import Recorder
 
 
+def add_config_args(parser: argparse.ArgumentParser) -> None:
+    """The config flags of train.py and eval.py: the gin dialect
+    (--gin_configs, --gin_bindings; --logtostderr is accepted and does
+    nothing) and the yaml dialect (--config, --data_dir, --save_dir)."""
+    parser.add_argument("--gin_configs", action="append", default=[],
+                        help="gin config file(s), Mip-NeRF 360 style")
+    parser.add_argument("--gin_bindings", action="append", default=[],
+                        help="gin binding overrides")
+    parser.add_argument("--config", default=None,
+                        help="yaml config path, nerfacto style")
+    parser.add_argument("--data_dir", default=None)
+    parser.add_argument("--save_dir", default=None,
+                        help="checkpoint dir (nerfacto name)")
+    parser.add_argument("--logtostderr", action="store_true")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         prog="python -m nerf_hugs_torch.train",
-        description="Train a nerfacto model from a yaml config.")
-    parser.add_argument("--config", required=True, help="yaml config path")
-    parser.add_argument("--data_dir", required=True)
-    parser.add_argument("--save_dir", required=True, help="checkpoint dir")
-    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        description="Train a model from a yaml or gin config.")
+    add_config_args(parser)
     return parser.parse_args(argv)
 
 
@@ -61,13 +83,13 @@ def eval_window_indices(event: int, dataset_size: int,
     return [(base + i) % dataset_size for i in range(n_eval)]
 
 
-def _eval_metrics(model, test_dataset, window, train_frac, config, device,
+def _eval_metrics(model, batches, train_frac, config, device,
                   harness) -> dict:
-    """Mean metrics (psnr, ssim) of the clipped renders over the window's
-    test images, against the GT composited over the test background."""
+    """Mean metrics (psnr, ssim) of the clipped renders over the test
+    images of `batches` (fetched one at a time), against the GT composited
+    over the test background."""
     per_image = []
-    for idx in window:
-        batch = test_dataset.generate_ray_batch(idx)
+    for batch in batches:
         rgb = np.clip(render_image(model, batch.rays, train_frac, config,
                                    device)["rgb"], 0, 1)
         gt = nh_image.composite_alpha(
@@ -79,11 +101,16 @@ def _eval_metrics(model, test_dataset, window, train_frac, config, device,
 
 
 def check_num_embeddings(config, dataset, stage: str = "train") -> None:
-    """With appearance or transient embeddings, the table must cover the
-    split's largest embedding index (test splits, which the finetune stage
-    trains on, come after the train images), as train.py:160-180 checks."""
-    nc = config.nerfacto
-    if not (nc.use_appearance_embedding or nc.use_transient_embedding):
+    """With GLO, appearance or transient embeddings, the table must cover
+    the split's largest embedding index (test splits, which the finetune
+    stage trains on, come after the train images), as train.py:163-181
+    checks."""
+    mc, nc = config.model, config.nerfacto
+    uses_embeds = (mc.num_glo_features > 0 or mc.num_transient_features > 0
+                   or (config.model_type in ("nerfacto", "nerf")
+                       and (nc.use_appearance_embedding
+                            or nc.use_transient_embedding)))
+    if not uses_embeds:
         return
     needed = (int(np.max(dataset.embed_idxs)) + 1 if len(dataset.embed_idxs)
               else dataset.size)
@@ -101,25 +128,59 @@ def load_config(path: str, data_dir: str, save_dir: str):
     return config
 
 
+def load_config_from_args(args):
+    """The config of either dialect (train.py:45-60): the yaml of --config,
+    else the gin files and bindings; --data_dir / --save_dir override the
+    directories, and both must be set."""
+    if args.config:
+        config = yaml_loader.load_yaml_config(args.config)
+    else:
+        config = gin_parser.parse_gin_configs(args.gin_configs,
+                                              args.gin_bindings)
+    if args.data_dir:
+        config.data_dir = args.data_dir
+    if args.save_dir:
+        config.checkpoint_dir = args.save_dir
+    if config.checkpoint_dir is None:
+        raise ValueError("checkpoint_dir/--save_dir must be set")
+    if config.data_dir is None:
+        raise ValueError("data_dir must be set")
+    return config
+
+
+_BACKBONES = {"nerfacto": nerfacto, "mipnerf360": mipnerf360}
+
+
 def preflight(config) -> None:
-    """What a run checks before it builds anything: a nerfacto model, a
-    known transient type with the embedding its head reads, a ported data
-    loader, and, with finetune_enable, finetune_params groups that name
-    modules of the model."""
-    if config.model_type != "nerfacto":
+    """What a run checks before it builds anything: a ported model type, a
+    known transient type with the embeddings its heads read, a ported data
+    loader, weight_decay_mults only where the model maps the flax paths
+    (Mip-NeRF 360), and, with finetune_enable, finetune_params groups that
+    name modules of the model (Mip-NeRF 360: an embedding to train)."""
+    backbone = _BACKBONES.get(config.model_type)
+    if backbone is None:
         raise NotImplementedError(
             f"model_type {config.model_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1 items 13-14)")
-    check_transient_config(config)
+            "(ROADMAP.md Queue 1 item 13)")
+    backbone.check_transient_config(config)
     check_loader(config)
+    if config.weight_decay_mults and config.model_type != "mipnerf360":
+        raise NotImplementedError(
+            "weight_decay_mults is ported for model_type 'mipnerf360' only")
     if config.finetune_enable:
-        step_lib.finetune_partitions(config, module_names(config))
+        labels = step_lib.finetune_partitions(config,
+                                              backbone.module_names(config))
+        if "trainable" not in labels.values():
+            raise ValueError(
+                "finetune_enable trains Mip-NeRF 360's embeddings ('embedding'"
+                " in path), and this model has none: set num_glo_features or"
+                " num_transient_features")
 
 
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
-    config = load_config(args.config, args.data_dir, args.save_dir)
+    config = load_config_from_args(args)
     preflight(config)
     pin_fp32_precision()
 
@@ -133,8 +194,8 @@ def main(argv=None):
     test_dataset = load_dataset("test", config.data_dir, config,
                                 is_training=False)
     harness = nh_image.MetricHarness(device=device)
-    model = NerfactoModel(config, device,
-                          torch.Generator().manual_seed(config.seed))
+    model = construct_model(config, device,
+                            torch.Generator().manual_seed(config.seed))
     num_params = sum(p.numel() for p in model.parameters())
     recorder.print(f"Number of parameters being optimized: {num_params}")
     stages = ["train"] + (["finetune"] if config.finetune_enable else [])
@@ -233,15 +294,21 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
 
         if config.train_render_every > 0 and (
                 step % config.train_render_every == 0 or step == num_steps):
-            # Event number = triggers at or before `step`, counting the
-            # extra final-step trigger when num_steps is off the cadence.
-            event = step // config.train_render_every
-            if step == num_steps and step % config.train_render_every:
-                event += 1
-            window = eval_window_indices(event, test_dataset.size,
-                                         config.eval_images_num)
-            metrics = _eval_metrics(model, test_dataset, window, train_frac,
-                                    config, device, harness)
+            if config.model_type == "mipnerf360":
+                batches = [next(test_dataset)]
+            else:
+                # Event number = triggers at or before `step`, counting the
+                # extra final-step trigger when num_steps is off the
+                # cadence.
+                event = step // config.train_render_every
+                if step == num_steps and step % config.train_render_every:
+                    event += 1
+                batches = (test_dataset.generate_ray_batch(i)
+                           for i in eval_window_indices(
+                               event, test_dataset.size,
+                               config.eval_images_num))
+            metrics = _eval_metrics(model, batches, train_frac, config,
+                                    device, harness)
             recorder.print(f"[{stage}] {step}: eval " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items()))
             start = time.time()

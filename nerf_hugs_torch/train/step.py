@@ -4,8 +4,10 @@ Twin of nerf_hugs_tpu/train/step.py:66-252 for one device: the loss
 composition of the JAX `loss_fn` (base, withmask, robustnerf, nerfw and
 hanerf; a data-only loss in the finetune stage), per-top-level-module
 clipping, nan_to_num on the gradients and optax's Adam on the
-warmup-decay schedule. The finetune stage trains the config's
-finetune_params groups only: the frozen parameters take no gradient
+warmup-decay schedule, and the weight-decay term of weight_decay_mults
+(Mip-NeRF 360). The finetune stage trains the config's finetune_params
+groups only (Mip-NeRF 360: its embeddings): the frozen parameters take no
+gradient
 (requires_grad off), and Adam holds the trainable ones alone, which moves
 the same values as optax.multi_transform with set_to_zero on the rest.
 """
@@ -48,17 +50,24 @@ def create_optimizer(config, model: torch.nn.Module):
                        config.adam_beta2, config.adam_eps)
 
 
+# Mip-NeRF 360's nn.Embedding modules (flax nn.Embed, leaf 'embedding').
+EMBED_MODULES = ("GloEmbed_0", "TransientEmbed_0")
 FINETUNE_GROUPS = ("field", "proposal", "appearance_embedding",
                    "transient_embedding", "implicit_mask")
 
 
 def finetune_partitions(config, names: Iterable[str]) -> Dict[str, str]:
-    """{parameter name: 'trainable' | 'frozen'} for the finetune stage.
-    The trainable set is config.finetune_params, a list of the model's
-    param groups (FINETUNE_GROUPS): a group takes the parameters of the
-    top-level module of its name, 'proposal' those of proposal_0..k-1. A
-    group that matches no parameter raises, as the JAX package does
-    (nerf_hugs_tpu/train/step.py:97-154)."""
+    """{parameter name: 'trainable' | 'frozen'} for the finetune stage, in
+    the two dialects of nerf_hugs_tpu/train/step.py:97-154.
+    nerfacto: the trainable set is config.finetune_params, a list of the
+    model's param groups (FINETUNE_GROUPS): a group takes the parameters
+    of the top-level module of its name, 'proposal' those of
+    proposal_0..k-1, and a group that matches no parameter raises.
+    mipnerf360: `'embedding' in path`, every nn.Embed leaf of the flax
+    tree, i.e. the nn.Embedding tables GloEmbed_0 and TransientEmbed_0."""
+    if config.model_type == "mipnerf360":
+        return {name: ("trainable" if name.split(".")[0] in EMBED_MODULES
+                       else "frozen") for name in names}
     groups = tuple(config.finetune_params or ())
     matched = set()
     labels = {}
@@ -141,6 +150,26 @@ def clip_gradients(grads: Dict[str, Optional[torch.Tensor]], config):
     return out
 
 
+def weight_decay_loss(model, mults: Dict[str, float]) -> torch.Tensor:
+    """The `weight` term of the JAX loss (step.py:223-229): sum of mult x
+    the squared norm of the subtree that each key names, keys being
+    summarize_tree's flax paths of depth 1-3 ('NerfMLP_0',
+    'NerfMLP_0/Dense_0', 'NerfMLP_0/Dense_0/kernel'); the model maps its
+    parameter names onto them (`flax_path`)."""
+    paths = {name: model.flax_path(name) for name, _ in
+             model.named_parameters()}
+    params = dict(model.named_parameters())
+    terms = []
+    for key, mult in mults.items():
+        parts = tuple(key.split("/"))
+        hit = [n for n, path in paths.items() if path[:len(parts)] == parts]
+        if not hit or len(parts) > 3:
+            raise ValueError(f"weight_decay_mults key {key!r} names no "
+                             "subtree of the parameters")
+        terms.append(mult * sum(torch.sum(params[n] ** 2) for n in hit))
+    return torch.stack(terms).sum()
+
+
 def compute_loss(model, batch, train_frac: float, config,
                  rng: Optional[torch.Generator],
                  inlier_thresholds: Optional[torch.Tensor] = None,
@@ -180,6 +209,9 @@ def compute_loss(model, batch, train_frac: float, config,
             losses["interlevel"] = zoo.interlevel_loss(ray_history, config)
         if config.distortion_loss_mult > 0:
             losses["distortion"] = zoo.distortion_loss(ray_history, config)
+        if config.weight_decay_mults:
+            losses["weight"] = weight_decay_loss(model,
+                                                 config.weight_decay_mults)
     loss = sum(losses.values())
     stats["losses"] = losses
     return loss, stats
