@@ -1366,12 +1366,16 @@ def gin_flags(name: str, steps: int, *extra) -> list:
 def mip_small_phase(torch, dev):
     """Phase 14a: the toy Mip-NeRF 360 model on the card against the same
     weights on the CPU, loss and every gradient, in fp32 and in bf16 with
-    remat, for each of MIP_VARIANTS."""
+    remat, for each of MIP_VARIANTS; then one step of the port's Adam
+    (the fused OptaxAdam) on each device from the CPU's gradients, every
+    new parameter within 1e-6 relative of the CPU's (relative to the
+    larger of the parameter and the rate)."""
     import numpy as np
 
     from nerf_hugs_torch.configs import gin_parser
     from nerf_hugs_torch.models import construct_model
-    from nerf_hugs_torch.train.step import compute_loss
+    from nerf_hugs_torch.train.step import (apply_gradients, compute_loss,
+                                            create_optimizer)
     from nerf_hugs_torch.utils import structs
     rs = np.random.RandomState(0)
     n = 256
@@ -1403,8 +1407,9 @@ def mip_small_phase(torch, dev):
                 loss.backward()
                 results[device] = (loss.item(), {
                     k: p.grad.detach().cpu()
-                    for k, p in model.named_parameters()})
-            (loss_c, grads_c), (loss_g, grads_g) = results["cpu"], results[dev]
+                    for k, p in model.named_parameters()}, model)
+            (loss_c, grads_c, model_c), (loss_g, grads_g, model_g) = (
+                results["cpu"], results[dev])
             loss_rel = abs(loss_g - loss_c) / abs(loss_c)
             grad_rel = max(float((grads_g[k] - grads_c[k]).abs().max())
                            / max(float(grads_c[k].abs().max()), 1e-30)
@@ -1420,6 +1425,22 @@ def mip_small_phase(torch, dev):
                   f"toy mipnerf360 loss differs ({variant}, {dtype})")
             check(grad_rel <= grad_tol,
                   f"toy mipnerf360 gradients differ ({variant}, {dtype})")
+            for model in (model_c, model_g):
+                opt, sched = create_optimizer(config, model)
+                lr = opt.param_groups[0]["lr"]
+                params = dict(model.named_parameters())
+                with torch.no_grad():
+                    apply_gradients(opt, sched, params, {
+                        k: g.to(params[k].device) for k, g in grads_c.items()})
+            params_c = dict(model_c.named_parameters())
+            adam_rel = max(float(((p.detach().cpu() - params_c[k]).abs()
+                                  / params_c[k].abs().clamp(min=lr)).max())
+                           for k, p in model_g.named_parameters())
+            print(f"check mipnerf360 toy ({variant}, {dtype}) Adam step from "
+                  f"the CPU's gradients, cuda vs cpu: worst {adam_rel:.2e} "
+                  f"of max(|param|, lr {lr:g}) (bound 1e-6)", flush=True)
+            check(adam_rel <= 1e-6,
+                  f"toy mipnerf360 Adam steps differ ({variant}, {dtype})")
 
 
 def mip_categorize(prof, steps: int) -> dict:
@@ -1503,15 +1524,22 @@ def mip_train(torch, flags: list, data_dir: str, save_dir: str, tag: str,
     return launches, terms, reading
 
 
-def mip_forward_flops(name: str) -> float:
-    """The GEMM operations of one forward pass of a train batch of
-    configs/mipnerf360/{name}.gin: each MLP's multiply-adds a sample (a
-    skip concatenation widens the layer after it) x 2 x its samples."""
+def mip_step_flops(name: str, remat: bool) -> float:
+    """The GEMM operations of one train step of a batch of
+    configs/mipnerf360/{name}.gin, counting the products autograd runs:
+    each MLP's multiply-adds a sample (a skip concatenation widens the
+    layer after it) x 2 x its samples for the forward, once more for the
+    weight gradients, and once more for the input gradients but those of
+    each trunk's first layer (its IPE features carry no gradient: the
+    rays carry none and each level's samples are stop-gradient); under
+    remat the forward runs twice."""
     from nerf_hugs_torch.configs import gin_parser
     from nerf_hugs_torch.core import geopoly
     config = gin_parser.parse_gin_configs([os.path.join(
         HERE, "configs", "mipnerf360", f"{name}.gin")])
     mc = config.model
+    check(mc.stop_level_grad,
+          f"{name}: the IPE features carry a gradient; count its products")
 
     def stack(d_in, width, depth, skip):
         macs, d = 0, d_in
@@ -1521,24 +1549,27 @@ def mip_forward_flops(name: str) -> float:
         return macs, d
 
     def mlp_macs(c, glo):
+        """(multiply-adds a sample, those of the trunk's first layer)."""
         feat = 2 * len(geopoly.generate_basis(
             c.basis_shape, c.basis_subdivisions)) * (c.max_deg_point
                                                      - c.min_deg_point)
         macs, d = stack(feat, c.net_width, c.net_depth, c.skip_layer)
         macs += d
-        if c.disable_rgb:
-            return macs
-        macs += d * c.bottleneck_width
-        view, d = stack(c.bottleneck_width + 3 + 6 * c.deg_view + glo,
-                        c.net_width_viewdirs, c.net_depth_viewdirs,
-                        c.skip_layer_dir)
-        return macs + view + d * c.num_rgb_channels
+        if not c.disable_rgb:
+            macs += d * c.bottleneck_width
+            view, d = stack(c.bottleneck_width + 3 + 6 * c.deg_view + glo,
+                            c.net_width_viewdirs, c.net_depth_viewdirs,
+                            c.skip_layer_dir)
+            macs += view + d * c.num_rgb_channels
+        return macs, feat * c.net_width
 
-    rays = config.batch_size
-    return 2 * rays * (
-        mlp_macs(config.nerf_mlp, mc.num_glo_features) * mc.num_nerf_samples
-        + mlp_macs(config.prop_mlp, 0) * mc.num_prop_samples
-        * (mc.num_levels - 1))
+    samples = ((config.nerf_mlp, mc.num_glo_features, mc.num_nerf_samples),
+               (config.prop_mlp, 0, mc.num_prop_samples * (mc.num_levels - 1)))
+    total = 0
+    for c, glo, n in samples:
+        macs, first = mlp_macs(c, glo)
+        total += n * ((3 + remat) * macs - first)
+    return 2 * config.batch_size * total
 
 
 def mip_micro_phase(torch, dev):
@@ -1556,7 +1587,7 @@ def mip_micro_phase(torch, dev):
     w = torch.rand(rays, 64, generator=gen, device=dev)
     w = w / w.sum(-1, keepdim=True)
     dilate = median_ms(lambda: stepfun.max_dilate_weights(
-        t, w, 0.0025 + 0.5 / 64, domain=(0.0, 1.0), renormalize=True))
+        t, w, 0.0025 + 0.5 / 64, domain=(0.0, 1.0)))
     basis = torch.tensor(geopoly.generate_basis("icosahedron", 2).T.copy(),
                          dtype=torch.float32, device=dev)
     ipe = {}
@@ -1593,16 +1624,16 @@ def mip_phase(torch, tmp: str, scene: str, distractor: str,
                            scene, exp("bf16"),
                            "Mip-NeRF 360 kubric_1024_base_tpu_bf16", 8,
                            profile=True)
-    # GEMM work a step: the forward, the backward's two products, and
-    # under remat the forward once more.
-    forward = mip_forward_flops("kubric_1024_base")
+    flops = {remat: mip_step_flops("kubric_1024_base", remat)
+             for remat in (False, True)}
     print("mipnerf360 kubric_1024_base: " + "; ".join(
         f"{tag} {r['steps_per_s']:.3f} steps/s, device {r['device_ms']:.3f}"
         f" ms per step, busy {r['busy']:.3f}, peak {r['peak_gib']:.2f} GiB, "
-        f"GEMMs {passes * forward / 1e12:.2f} TFLOP in "
+        f"GEMMs {flops[remat] / 1e12:.2f} TFLOP in "
         f"{r['split']['gemm']:.3f} ms "
-        f"({passes * forward / r['split']['gemm'] / 1e9:.1f} TFLOP/s)"
-        for tag, r, passes in (("fp32", fp32, 3), ("bf16 + remat", bf16, 4)))
+        f"({flops[remat] / r['split']['gemm'] / 1e9:.1f} TFLOP/s)"
+        for tag, r, remat in (("fp32", fp32, False),
+                              ("bf16 + remat", bf16, True)))
         + f"; bf16 / fp32 device time "
         f"{bf16['device_ms'] / fp32['device_ms']:.3f}", flush=True)
     # 14d: withmask, and RobustNeRF with the patch its loss needs.

@@ -122,12 +122,12 @@ def lift_and_diagonalize(mean, cov, basis):
     return out_mean, out_var
 
 
-def pos_enc(x, min_deg, max_deg, append_identity=True):
-    """NeRF positional encoding with frequencies 2^[min_deg, max_deg)."""
+def pos_enc(x, min_deg, max_deg):
+    """NeRF positional encoding with frequencies 2^[min_deg, max_deg),
+    after the input itself (JAX's append_identity=True, the form every
+    caller uses)."""
     scales = _scales(min_deg, max_deg, x)
     shape = x.shape[:-1] + (-1,)
     sx = torch.reshape(x[..., None, :] * scales[:, None], shape)
     feats = torch.sin(torch.cat([sx, sx + 0.5 * math.pi], dim=-1))
-    if append_identity:
-        return torch.cat([x, feats], dim=-1)
-    return feats
+    return torch.cat([x, feats], dim=-1)

@@ -15,18 +15,13 @@ from nerf_hugs_torch.core import stepfun
 _EPS = float(np.finfo(np.float32).eps)
 
 
-def lift_gaussian(d, t_mean, t_var, r_var, diag):
-    """Along-ray moments -> a 3-D Gaussian for ray direction d (which need
-    not be normalized): t_var along d, r_var isotropic across it."""
+def lift_gaussian(d, t_mean, t_var, r_var):
+    """Along-ray moments -> a 3-D Gaussian with full covariance for ray
+    direction d (which need not be normalized): t_var along d, r_var
+    isotropic across it."""
     mean = d[..., None, :] * t_mean[..., None]
     d_mag_sq = torch.clamp(torch.sum(d ** 2, dim=-1, keepdim=True),
                            min=1e-10)
-    if diag:
-        d_outer_diag = d ** 2
-        null_outer_diag = 1.0 - d_outer_diag / d_mag_sq
-        cov_diag = (t_var[..., None] * d_outer_diag[..., None, :]
-                    + r_var[..., None] * null_outer_diag[..., None, :])
-        return mean, cov_diag
     d_outer = d[..., :, None] * d[..., None, :]
     eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
     null_outer = eye - d[..., :, None] * (d / d_mag_sq)[..., None, :]
@@ -35,37 +30,32 @@ def lift_gaussian(d, t_mean, t_var, r_var, diag):
     return mean, cov
 
 
-def conical_frustum_to_gaussian(d, t0, t1, base_radius, diag, stable=True):
+def conical_frustum_to_gaussian(d, t0, t1, base_radius):
     """Moments of a conical frustum (mip-NeRF Eq. 7), `base_radius` the
-    cone's radius at distance 1. stable=True is the (mid, half-width) form;
-    the power form cancels catastrophically in fp32."""
-    if stable:
-        mu = (t0 + t1) / 2
-        hw = (t1 - t0) / 2
-        denom = torch.clamp(3 * mu ** 2 + hw ** 2, min=_EPS)
-        t_mean = mu + (2 * mu * hw ** 2) / denom
-        t_var = (hw ** 2 / 3
-                 - (4 / 15) * hw ** 4 * (12 * mu ** 2 - hw ** 2) / denom ** 2)
-        r_var = mu ** 2 / 4 + (5 / 12) * hw ** 2 - (4 / 15) * hw ** 4 / denom
-    else:
-        t_mean = 3 * (t1 ** 4 - t0 ** 4) / (4 * (t1 ** 3 - t0 ** 3))
-        r_var = (3 / 20) * (t1 ** 5 - t0 ** 5) / (t1 ** 3 - t0 ** 3)
-        t_mosq = (3 / 5) * (t1 ** 5 - t0 ** 5) / (t1 ** 3 - t0 ** 3)
-        t_var = t_mosq - t_mean ** 2
-    return lift_gaussian(d, t_mean, t_var, r_var * base_radius ** 2, diag)
+    cone's radius at distance 1, in the (mid, half-width) form that does
+    not cancel in fp32 (JAX's stable=True)."""
+    mu = (t0 + t1) / 2
+    hw = (t1 - t0) / 2
+    denom = torch.clamp(3 * mu ** 2 + hw ** 2, min=_EPS)
+    t_mean = mu + (2 * mu * hw ** 2) / denom
+    t_var = (hw ** 2 / 3
+             - (4 / 15) * hw ** 4 * (12 * mu ** 2 - hw ** 2) / denom ** 2)
+    r_var = mu ** 2 / 4 + (5 / 12) * hw ** 2 - (4 / 15) * hw ** 4 / denom
+    return lift_gaussian(d, t_mean, t_var, r_var * base_radius ** 2)
 
 
-def cylinder_to_gaussian(d, t0, t1, radius, diag):
+def cylinder_to_gaussian(d, t0, t1, radius):
     """Moments of a cylinder segment along the ray (exact)."""
     t_mean = (t0 + t1) / 2
     t_var = (t1 - t0) ** 2 / 12
     r_var = radius ** 2 / 4
-    return lift_gaussian(d, t_mean, t_var, r_var, diag)
+    return lift_gaussian(d, t_mean, t_var, r_var)
 
 
-def cast_rays(tdist, origins, directions, radii, ray_shape, diag=True):
-    """Ray sections [tdist_i, tdist_i+1) as Gaussians: (means shifted by
-    the ray origins, covariances)."""
+def cast_rays(tdist, origins, directions, radii, ray_shape):
+    """Ray sections [tdist_i, tdist_i+1) as Gaussians with full
+    covariances (JAX's diag=False, the only form the model uses): (means
+    shifted by the ray origins, covariances)."""
     t0, t1 = tdist[..., :-1], tdist[..., 1:]
     if ray_shape == "cone":
         gaussian_fn = conical_frustum_to_gaussian
@@ -74,7 +64,7 @@ def cast_rays(tdist, origins, directions, radii, ray_shape, diag=True):
     else:
         raise ValueError(
             f"ray_shape must be 'cone' or 'cylinder', got {ray_shape}")
-    means, covs = gaussian_fn(directions, t0, t1, radii, diag)
+    means, covs = gaussian_fn(directions, t0, t1, radii)
     return means + origins[..., None, :], covs
 
 

@@ -52,9 +52,9 @@ def lossfun_outer(t, w, t_env, w_env, eps=_EPS):
     return torch.clamp(w - w_outer, min=0) ** 2 / (w + eps)
 
 
-def weight_to_pdf(t, w, eps=_EPS ** 2):
+def weight_to_pdf(t, w):
     """Bin weights -> densities (divide by bin width)."""
-    return w / torch.clamp(t[..., 1:] - t[..., :-1], min=eps)
+    return w / torch.clamp(t[..., 1:] - t[..., :-1], min=_EPS ** 2)
 
 
 def pdf_to_weight(t, p):
@@ -62,7 +62,7 @@ def pdf_to_weight(t, p):
     return p * (t[..., 1:] - t[..., :-1])
 
 
-def max_dilate(t, w, dilation, domain=(-float("inf"), float("inf"))):
+def max_dilate(t, w, dilation, domain):
     """Max-pool a non-negative step function outward by `dilation`: each
     bin [t0, t1) grows to [t0 - d, t1 + d), and the dilated function at a
     point is the max over the grown bins that cover it. Like JAX, this
@@ -79,16 +79,15 @@ def max_dilate(t, w, dilation, domain=(-float("inf"), float("inf"))):
     return t_d, w_d
 
 
-def max_dilate_weights(t, w, dilation,
-                       domain=(-float("inf"), float("inf")),
-                       renormalize=False, eps=_EPS ** 2):
-    """Dilate weights in density space, so that mass scales with width."""
+def max_dilate_weights(t, w, dilation, domain):
+    """Dilate weights in density space, so that mass scales with width,
+    and renormalize them to sum to 1 (JAX's renormalize=True, the form the
+    model uses)."""
     p = weight_to_pdf(t, w)
     t_d, p_d = max_dilate(t, p, dilation, domain=domain)
     w_d = pdf_to_weight(t_d, p_d)
-    if renormalize:
-        w_d = w_d / torch.clamp(torch.sum(w_d, dim=-1, keepdim=True),
-                                min=eps)
+    w_d = w_d / torch.clamp(torch.sum(w_d, dim=-1, keepdim=True),
+                            min=_EPS ** 2)
     return t_d, w_d
 
 

@@ -9,19 +9,38 @@ the chunked renderer do not depend on the backbone.
 
 from __future__ import annotations
 
+from typing import Callable, List, NamedTuple
+
 import torch
+
+
+class Backbone(NamedTuple):
+    """What the drivers need of a backbone: its model class, the
+    transient-type checks it runs first, and the top-level module names
+    it builds for a config (the finetune and clipping groups)."""
+    model: type
+    check_transient_config: Callable[..., None]
+    module_names: Callable[..., List[str]]
+
+
+def backbone(config) -> Backbone:
+    """The backbone that config.model_type names; the one place that maps
+    model types to modules."""
+    if config.model_type == "mipnerf360":
+        from nerf_hugs_torch.models import mipnerf360 as module
+        model = module.MipNerf360Model
+    elif config.model_type == "nerfacto":
+        from nerf_hugs_torch.models import nerfacto as module
+        model = module.NerfactoModel
+    elif config.model_type == "nerf":
+        raise NotImplementedError(
+            "model_type 'nerf' is not ported yet (ROADMAP.md Queue 1 item "
+            "13)")
+    else:
+        raise ValueError(f"unknown model_type {config.model_type!r}")
+    return Backbone(model, module.check_transient_config, module.module_names)
 
 
 def construct_model(config, device, generator: torch.Generator):
     """The config's backbone, its parameters drawn from `generator`."""
-    if config.model_type == "mipnerf360":
-        from nerf_hugs_torch.models.mipnerf360 import MipNerf360Model
-        return MipNerf360Model(config, device, generator)
-    if config.model_type == "nerfacto":
-        from nerf_hugs_torch.models.nerfacto import NerfactoModel
-        return NerfactoModel(config, device, generator)
-    if config.model_type == "nerf":
-        raise NotImplementedError(
-            "model_type 'nerf' is not ported yet (ROADMAP.md Queue 1 item "
-            "13)")
-    raise ValueError(f"unknown model_type {config.model_type!r}")
+    return backbone(config).model(config, device, generator)

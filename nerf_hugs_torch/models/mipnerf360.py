@@ -168,8 +168,7 @@ class MipNerf360Model(nn.Module):
                 if i_level > 0 and (mc.dilation_bias > 0
                                     or mc.dilation_multiplier > 0):
                     sdist, weights = stepfun.max_dilate_weights(
-                        sdist, weights, dilation, domain=domain,
-                        renormalize=True)
+                        sdist, weights, dilation, domain=domain)
                     sdist = sdist[..., 1:-1]
                     weights = weights[..., 1:-1]
                 # log-space weights ** anneal; zero-width intervals -inf.
@@ -185,7 +184,7 @@ class MipNerf360Model(nn.Module):
             tdist = s_to_t(sdist)
             gaussians = render.cast_rays(tdist, rays.origins,
                                          rays.directions, rays.radii,
-                                         mc.ray_shape, diag=False)
+                                         mc.ray_shape)
             if mc.disable_integration:
                 gaussians = (gaussians[0], torch.zeros_like(gaussians[1]))
             mlp = self.PropMLP_0 if is_prop else self.NerfMLP_0

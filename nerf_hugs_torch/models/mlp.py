@@ -191,8 +191,7 @@ class PosEncMLP(nn.Module):
                     bottleneck = bottleneck + bottleneck_noise.to(cdt)
                 branches.append(bottleneck)
             lead = x.shape[:-1]
-            dir_enc = coord.pos_enc(viewdirs, min_deg=0, max_deg=c.deg_view,
-                                    append_identity=True)
+            dir_enc = coord.pos_enc(viewdirs, min_deg=0, max_deg=c.deg_view)
             branches.append(dir_enc[..., None, :].expand(
                 lead + dir_enc.shape[-1:]).to(cdt))
             if glo_vec is not None:
@@ -244,8 +243,8 @@ class ImplicitMask(nn.Module):
 
     def forward(self, pix_coords, tra_vec):
         x = torch.cat([coord.pos_enc(pix_coords, min_deg=0,
-                                     max_deg=self.deg_coord,
-                                     append_identity=True), tra_vec], dim=-1)
+                                     max_deg=self.deg_coord), tra_vec],
+                      dim=-1)
         for name in self.hidden:
             x = F.relu(getattr(self, name)(x))
         return torch.sigmoid(getattr(self, self.out)(x))

@@ -39,7 +39,7 @@ import torch
 from nerf_hugs_torch.configs import gin_parser, yaml_loader
 from nerf_hugs_torch.data import check_loader, load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
-from nerf_hugs_torch.models import construct_model, mipnerf360, nerfacto
+from nerf_hugs_torch.models import backbone as model_backbone, construct_model
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
 from nerf_hugs_torch.train.render_image import render_image
@@ -148,20 +148,13 @@ def load_config_from_args(args):
     return config
 
 
-_BACKBONES = {"nerfacto": nerfacto, "mipnerf360": mipnerf360}
-
-
 def preflight(config) -> None:
     """What a run checks before it builds anything: a ported model type, a
     known transient type with the embeddings its heads read, a ported data
     loader, weight_decay_mults only where the model maps the flax paths
     (Mip-NeRF 360), and, with finetune_enable, finetune_params groups that
     name modules of the model (Mip-NeRF 360: an embedding to train)."""
-    backbone = _BACKBONES.get(config.model_type)
-    if backbone is None:
-        raise NotImplementedError(
-            f"model_type {config.model_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
+    backbone = model_backbone(config)
     backbone.check_transient_config(config)
     check_loader(config)
     if config.weight_decay_mults and config.model_type != "mipnerf360":

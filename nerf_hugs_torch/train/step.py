@@ -15,6 +15,7 @@ the same values as optax.multi_transform with set_to_zero on the rest.
 from __future__ import annotations
 
 import functools
+import math
 from collections import defaultdict
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -26,15 +27,43 @@ from nerf_hugs_torch.losses import zoo
 from nerf_hugs_torch.metrics.image import mse_to_psnr
 
 
+class OptaxAdam(torch.optim.Adam):
+    """torch's fused Adam, stepping as optax.adam does in float32. optax's
+    moments decay by (1 - b) rounded from double, as torch's do, but its
+    bias corrections are 1 - b ** count in float32 with b rounded to
+    float32 first (1 - 0.999f = 0.000999987, not 0.001), where torch's are
+    in double: 6.4e-6 relative on the step size at b2 = 0.999. Each step
+    folds the difference into the group's rate and eps: with
+    r = sqrt(bc2_f32 / bc2), the rate times r * bc1 / bc1_f32 and eps
+    times r give optax's lr * mu_hat / (sqrt(nu_hat) + eps). The count
+    lives in the param group, so it rides in the optimizer's state_dict."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        saved = []
+        for group in self.param_groups:
+            group["count"] = t = group.get("count", 0) + 1
+            b1, b2 = group["betas"]
+            bc_f32 = lambda b: float(np.float32(1)
+                                     - np.float32(b) ** np.float32(t))
+            r = math.sqrt(bc_f32(b2) / (1 - b2 ** t))
+            saved.append((group["lr"], group["eps"]))
+            group["lr"] *= r * (1 - b1 ** t) / bc_f32(b1)
+            group["eps"] *= r
+        loss = super().step(closure)
+        for group, (lr, eps) in zip(self.param_groups, saved):
+            group["lr"], group["eps"] = lr, eps
+        return loss
+
+
 def create_adam(params: Iterable[torch.nn.Parameter],
                 lr_fn: Callable[[int], float], b1: float, b2: float,
                 eps: float):
-    """optax.adam(learning_rate=lr_fn, b1, b2, eps) as a fused torch Adam
+    """optax.adam(learning_rate=lr_fn, b1, b2, eps) as a fused OptaxAdam
     and a LambdaLR that sets the rate to lr_fn(count), count being the
     number of steps taken before this one (optax's 0-based schedule index).
     Returns (optimizer, scheduler); step both through `apply_gradients`."""
-    opt = torch.optim.Adam(params, lr=1.0, betas=(b1, b2), eps=eps,
-                           fused=True)
+    opt = OptaxAdam(params, lr=1.0, betas=(b1, b2), eps=eps, fused=True)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_fn)
 
 
@@ -122,7 +151,10 @@ def apply_gradients(optimizer, scheduler,
     with a zero gradient, as optax does with the zero cotangent."""
     for k, p in params.items():
         g = grads.get(k)
-        p.grad = torch.zeros_like(p) if g is None else torch.nan_to_num(g)
+        # The fused kernel reads a gradient in its parameter's (contiguous)
+        # layout, whatever the gradient's own strides.
+        p.grad = (torch.zeros_like(p) if g is None
+                  else torch.nan_to_num(g).contiguous())
     optimizer.step()
     scheduler.step()
 

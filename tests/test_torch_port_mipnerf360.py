@@ -253,6 +253,42 @@ def test_train_step_matches_jax_train_step(case):
                                      err_msg=name)
 
 
+def test_adam_step_on_jax_gradients_matches_jax(case):
+    """The optimizer alone, with no gradient error in the way: JAX's
+    clipped gradients go through optax's Adam and through the port's
+    (nan_to_num, the fused OptaxAdam, the schedule's first rate), and
+    every new parameter is within 1e-6 relative of JAX's, relative to the
+    larger of the parameter and the step's rate (a zero-initialised bias
+    moves by about the rate)."""
+    _, _, grads_j = case.jax_loss()
+    clipped_j = jax.tree_util.tree_map(
+        jnp.nan_to_num,
+        jstep.clip_gradients({"params": grads_j}, case.jconfig)["params"])
+    state, _ = jstep.create_optimizer(case.jconfig,
+                                      {"params": case.params})
+    new_state = state.apply_gradients(grads={"params": clipped_j})
+    new_j = convert_mipnerf360_params(jax.tree_util.tree_map(
+        np.asarray, new_state.params["params"]))
+    clipped = convert_mipnerf360_params(jax.tree_util.tree_map(
+        np.asarray, clipped_j))
+    lr = float(jmath.learning_rate_decay(
+        0, case.jconfig.lr_init, case.jconfig.lr_final,
+        case.jconfig.max_steps, case.jconfig.lr_delay_steps,
+        case.jconfig.lr_delay_mult))
+
+    model = case.torch_model()
+    params = dict(model.named_parameters())
+    opt, sched = tstep.create_optimizer(case.tconfig, model)
+    with torch.no_grad():
+        tstep.apply_gradients(opt, sched, params, clipped)
+    assert set(params) == set(new_j)
+    for name, p in params.items():
+        got, want = p.detach().numpy(), new_j[name].numpy()
+        np.testing.assert_array_less(np.abs(got - want),
+                                     1e-6 * np.maximum(np.abs(want), lr),
+                                     err_msg=name)
+
+
 def test_per_module_clipping_matches_jax(case):
     """Clipping groups the gradients by top-level module (NerfMLP_0,
     PropMLP_0, the embeddings, the mask) as JAX's clip_gradients does, at

@@ -80,12 +80,11 @@ def gaussians(seed, n=6, s=5, scale=1.0):
 
 @pytest.mark.parametrize("deg", [(0, 4), (2, 6)])
 def test_pos_enc(deg):
+    """The form with the input appended, the only one the models use."""
     x = np.random.RandomState(1).randn(7, 3).astype(np.float32)
-    for identity in (True, False):
-        check_with_grads(
-            lambda v: jcoord.pos_enc(v, *deg, append_identity=identity),
-            lambda v: tcoord.pos_enc(v, *deg, append_identity=identity),
-            [x])
+    check_with_grads(
+        lambda v: jcoord.pos_enc(v, *deg, append_identity=True),
+        lambda v: tcoord.pos_enc(v, *deg), [x])
 
 
 def test_integrated_pos_enc_and_expected_sin():
@@ -154,26 +153,22 @@ def rays(seed, n=6, s=8):
     return tdist, origins, directions, radii
 
 
-@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("far", [False, True], ids=["near", "far"])
 @pytest.mark.parametrize("ray_shape", ["cone", "cylinder"])
-def test_cast_rays(ray_shape, diag):
+def test_cast_rays(ray_shape, far):
+    """Full covariances (JAX's diag=False, the form the model uses); the
+    far case puts narrow intervals at t ~ 100, where the cone's moments
+    come from the (mid, half-width) form, JAX's stable=True."""
+    tdist, origins, directions, radii = rays(8)
+    if far:
+        tdist = (100.0 + 0.01 * tdist).astype(np.float32)
     check_with_grads(
-        lambda t, o, d, r: jrender.cast_rays(t, o, d, r, ray_shape, diag),
-        lambda t, o, d, r: trender.cast_rays(t, o, d, r, ray_shape, diag),
-        list(rays(8)))
+        lambda t, o, d, r: jrender.cast_rays(t, o, d, r, ray_shape, False),
+        lambda t, o, d, r: trender.cast_rays(t, o, d, r, ray_shape),
+        [tdist, origins, directions, radii])
 
 
-def test_conical_frustum_power_form():
-    """The naive power form (no model path uses it) cancels
-    catastrophically in float32, so its values are compared at 1e-4."""
-    t, _, d, r = (torch.from_numpy(a) for a in rays(9))
-    got = trender.conical_frustum_to_gaussian(
-        d, t[..., :-1], t[..., 1:], r, False, stable=False)
-    want = jrender.conical_frustum_to_gaussian(
-        *(jnp.asarray(a.numpy()) for a in (d, t[..., :-1], t[..., 1:], r)),
-        False, stable=False)
-    for g, w in zip(got, want):
-        close(g, w, tol=1e-4)
+def test_cast_rays_rejects_an_unknown_shape():
     with pytest.raises(ValueError, match="ray_shape"):
         trender.cast_rays(*[torch.from_numpy(a) for a in rays(9)], "sphere")
 
@@ -198,26 +193,25 @@ def test_weight_pdf_round_trip():
     check_with_grads(jstep.pdf_to_weight, tstep.pdf_to_weight, [t, w])
 
 
-@pytest.mark.parametrize("renormalize,domain",
-                         [(True, (0.0, 1.0)), (False, (0.1, 0.9)),
-                          (True, (-np.inf, np.inf))])
-def test_max_dilate_weights(renormalize, domain):
+@pytest.mark.parametrize("domain", [(0.0, 1.0), (0.1, 0.9),
+                                    (-np.inf, np.inf)])
+def test_max_dilate_weights(domain):
     """Both outputs, the [rays, 3n + 1] endpoints (clipped to the domain)
-    and their weights, at the dilation of the second proposal level; the
-    gradients on endpoints without ties."""
+    and their renormalized weights, at the dilation of the second proposal
+    level; the gradients on endpoints without ties."""
     t, w = step_function(11)
-    fn = lambda step: (lambda t_, w_: step.max_dilate_weights(
-        t_, w_, 0.0025 + 0.5 / 64, domain=domain, renormalize=renormalize))
+    fn = lambda step, **kw: (lambda t_, w_: step.max_dilate_weights(
+        t_, w_, 0.0025 + 0.5 / 64, domain=domain, **kw))
+    jfn = fn(jstep, renormalize=True)
     for got, want in zip(fn(tstep)(torch.from_numpy(t), torch.from_numpy(w)),
-                         fn(jstep)(jnp.asarray(t), jnp.asarray(w))):
+                         jfn(jnp.asarray(t), jnp.asarray(w))):
         close(got, want)
     t_untied, _ = step_function(11, tie=False)
-    check_with_grads(fn(jstep), fn(tstep), [t_untied, w], grad_tol=1e-4)
+    check_with_grads(jfn, fn(tstep), [t_untied, w], grad_tol=1e-4)
     t_d, w_d = fn(tstep)(torch.from_numpy(t), torch.from_numpy(w))
     assert t_d.shape == (6, 3 * 12 + 1) and w_d.shape == (6, 3 * 12)
     assert float(t_d.min()) >= max(domain[0], -1)
-    if renormalize:
-        close(w_d.sum(-1), np.ones(6))
+    close(w_d.sum(-1), np.ones(6))
 
 
 @pytest.mark.parametrize("use_gpu_resampling", [False, True])
