@@ -150,7 +150,46 @@ Phases, each fatal on failure (exit code 1, no result line):
      gins; (f) phototourism_1024_base.gin on phase 12's capture, 4 train
      and 4 finetune steps (every tensor but GloEmbed_0.weight bit-equal
      across the finetune stage), then an eval from the finetune
-     checkpoint.
+     checkpoint;
+  15. vanilla NeRF (no ported kernel runs on its path: each run must
+     launch none): (a) the toy model of tests/test_torch_port_vanilla.py
+     (a 5-layer trunk of 32, 16 + 16 samples) on the card against the
+     same weights on the CPU, as base, NeRF-W and HA-NeRF, without the
+     interlevel term (the module docstring of that test says why): the
+     loss and every gradient in fp32 and fp64 at phase 5's tolerances,
+     but NeRF-W's fp32 gradients, which are held to 3 times the CPU's own
+     error under a 1e-7 move of the ray origins (vanilla_small_phase says
+     why); (b)
+     8 steps of configs/nerfacto/kubric_nerf_base.yml, model section
+     unchanged (64 + 64 samples, the fine pass over their 128-sample
+     union, batch 4096, fp32), on phase 7's kubric scene with a profiler
+     window over steps 5-7, then an eval of 2 images; (c) 4 steps of kubric_nerf_hanerf.yml
+     on the same scene, and phototourism_nerf_nerfw.yml (128 + 128
+     samples) on phase 12's capture, 4 train and 2 finetune steps, in
+     which only appearance_embedding moves;
+  16. the render driver, `nerf_hugs_torch.render.main`, which renders at
+     train_frac 1.0 as render.py does: (a) over phase 7's
+     kubric_nerfacto_base checkpoint, the 4 test frames, each colour PNG
+     equal bit for bit to the eval driver's image of the same frame
+     (phase 16 runs that eval of 2 images first, with max_steps set to
+     the checkpoint's 8 steps so that it too is at 1.0), the hash-grid forward
+     launched and nothing else; (b) job 1 of render_num_jobs 2 writes only
+     the odd frames, and its rerun skips frame 1; (c) render_path with
+     render_path_frames 3 writes 3 frames of the ellipse path; (d) over
+     phase 8's fused checkpoint, frames 0 and 16 (job 0 of 16), frame 0
+     equal to the eval image of that checkpoint at max_steps 8, the
+     hash-grid and resident fused bf16
+     forwards launched; seconds per frame for each;
+  17. llff and blender (no ported kernel: each run must launch none): a
+     forward-facing llff capture and a 360 one (20 frames of 1008x756 in
+     images_4/ each, LLFF's own size at factor 4,
+     hashgrid_inputs.write_llff_scene) and a blender scene
+     (8 train and 2 test frames of 800x800, write_blender_scene) written,
+     then 4 steps and an eval of 1 image each of llff_256.gin (NDC,
+     cylinders), 360.gin (contraction, NerfMLP 8 x 1024) and
+     blender_256.gin at their model sections, and the render driver over
+     the llff_256 run with render_config.gin (the spiral path,
+     render_path_frames 3).
 Each train run prints its steps/s over steps 2-8 and its peak device
 memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
@@ -889,13 +928,30 @@ def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
     # Steps 2.., each timed from the previous print to its own (the
     # driver synchronises on the stats it prints).
     rate = (len(steps) - 1) / sum(1 / s[2] for s in steps[1:])
+    with open(os.path.join(save_dir, "config.gin")) as f:
+        batch = int(re.search(r"Config\.batch_size = (\d+)",
+                              f.read()).group(1))
     print(f"train ({tag}): {len(steps)} steps in {wall:.1f} s; steps/s "
           f"after the "
-          f"first step {rate:.3f} ({rate * 16384:.0f} rays/s); losses "
+          f"first step {rate:.3f} ({rate * batch:.0f} rays/s); losses "
           f"{[round(s[1], 5) for s in steps]}; step-{len(steps)} terms "
           f"{terms['train'][-1]}; eval psnr {evals[0]}; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {train}", flush=True)
     return launches, terms
+
+
+def png_shape(path: str) -> tuple:
+    """(height, width) of a PNG."""
+    from PIL import Image
+    with Image.open(path) as img:
+        return img.height, img.width
+
+
+def png_pixels(path: str):
+    import numpy as np
+    from PIL import Image
+    with Image.open(path) as img:
+        return np.asarray(img)
 
 
 def png_psnr(pred_path: str, gt_path: str) -> float:
@@ -909,12 +965,13 @@ def png_psnr(pred_path: str, gt_path: str) -> float:
 
 def eval_phase(torch, cfg_path, data_dir: str, save_dir: str,
                tag: str, expected, score: bool,
-               summary: str = "metrics_test_8.txt", images: int = 2):
+               summary: str = "metrics_test_8.txt", images: int = 2,
+               ssim_min: float = 0.0):
     """nerf_hugs_torch.eval of `images` test images on a run's newest
     checkpoint (checks that the forward kernels of `expected` launched, no
-    other hash-grid or MLP kernel did, and that it wrote `summary`), then,
-    with `score`, the scoring CLI over the PNGs it wrote; returns the
-    eval's kernel launches."""
+    other hash-grid or MLP kernel did, that it wrote `summary`, and that
+    the mean SSIM lies in (ssim_min, 1]), then, with `score`, the scoring
+    CLI over the PNGs it wrote; returns the eval's kernel launches."""
     from nerf_hugs_torch.eval import main as eval_main
     from nerf_hugs_torch.metrics import main as score_main
     reset_launches()
@@ -938,11 +995,13 @@ def eval_phase(torch, cfg_path, data_dir: str, save_dir: str,
     with open(summary_path) as f:
         mean = {k: float(v) for k, v in (line.split() for line in f)}
     check(math.isfinite(mean["psnr"]) and math.isfinite(mean["psnr_cc"])
-          and 0 < mean["ssim"] <= 1,
+          and ssim_min < mean["ssim"] <= 1,
           f"eval metrics out of range: {mean}")
     with open(os.path.join(save_dir, "run_log.log")) as f:
         renders = re.findall(r"image \d+/\d+ rendered in (\S+)s", f.read())
-    print(f"eval ({tag}): {images} images of 256x256 in {wall:.1f} s (render "
+    height, width = png_shape(os.path.join(preds, colors[0]))
+    print(f"eval ({tag}): {images} images of {width}x{height} in {wall:.1f} "
+          f"s (render "
           f"{', '.join(renders)} s per image); mean {mean}; launches "
           f"{launches}", flush=True)
     if not score:
@@ -1700,6 +1759,341 @@ def mip_phase(torch, tmp: str, scene: str, distractor: str,
                summary="metrics_test_finetune_4.txt")
 
 
+# Phase 15: vanilla NeRF. The toy model of tests/test_torch_port_vanilla.py
+# (SMALL_YAML's base, 256 rays) and its variants; its loss leaves out the
+# interlevel term, whose coarse and fine fences tie in exact arithmetic and
+# which jumps where one ulp of rounding splits a tie.
+VANILLA_TOY = {
+    "net_depth": 5, "net_width": 32, "max_deg_point": 4, "deg_view": 2,
+    "num_coarse_nerf_samples_per_ray": 16,
+    "num_fine_nerf_samples_per_ray": 16, "proposal_initial_sampler": "uniform",
+    "opaque_background": True, "coarse_rgb_loss_mult": 0.5,
+    "interlevel_loss_mult": 0.0}
+VANILLA_VARIANTS = {
+    "base": {},
+    "NeRF-W": {"transient_type": "nerfw", "use_appearance_embedding": True,
+               "appearance_embedding_dim": 8,
+               "use_transient_embedding": True,
+               "transient_embedding_dim": 8},
+    "HA-NeRF": {"transient_type": "hanerf", "use_transient_embedding": True,
+                "transient_embedding_dim": 8},
+}
+NOT_ANY = ()               # a run that must launch no ported kernel
+
+
+def vanilla_small_phase(torch, tmp, dev):
+    """Phase 15a: the toy vanilla model on the card against the same
+    weights on the CPU. Its gradients are not continuous in fp32: a ReLU
+    whose pre-activation lies within rounding of zero on one device and
+    not the other moves its weights' gradients by one sample's share,
+    which reaches 1e-3 of a leaf's max in NeRF-W's uncertainty-weighted
+    loss (the CPU alone moves as much when the ray origins move by 1e-7).
+    So the fp32 run holds the loss to phase 5's 1e-5 and the gradients to
+    its 1e-4, but NeRF-W's, which are held to 3 times the CPU's own error
+    under that 1e-7 move (and at least 1e-4); the same weights in fp64
+    hold the loss and every gradient to 1e-5 and 1e-4, where rounding
+    cannot flip a ReLU."""
+    import copy
+
+    import yaml
+    from nerf_hugs_torch.data import load_dataset
+    from nerf_hugs_torch.models.vanilla import VanillaNerfModel
+    from nerf_hugs_torch.train import driver
+    from nerf_hugs_torch.train.step import compute_loss
+
+    def loss_and_grads(model, batch, device, dtype):
+        model = copy.deepcopy(model).to(device=device, dtype=dtype)
+        model.coarse.compute_dtype = model.fine.compute_dtype = dtype
+        batch = batch.to(device)
+        batch.rays = batch.rays.map(
+            lambda x: x.to(dtype) if x.is_floating_point() else x)
+        batch.rgb = batch.rgb.to(dtype)
+        loss, _ = compute_loss(model, batch, 0.3, config, None)
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().cpu().double()
+                             for k, p in model.named_parameters()}
+
+    def worst(grads, want):
+        return max(float((grads[k] - want[k]).abs().max())
+                   / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+    for variant, keys in VANILLA_VARIANTS.items():
+        raw = yaml.safe_load(SMALL_YAML)
+        raw["base"]["model_type"] = "nerf"
+        raw["model"] = {**VANILLA_TOY, **keys}
+        path = os.path.join(tmp, "vanilla_small.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(raw, f)
+        config = driver.load_config(path, tmp, os.path.join(tmp, "v_ckpt"))
+        batch = next(load_dataset("train", tmp, config, is_training=True))
+        model = VanillaNerfModel(config, "cpu",
+                                 torch.Generator().manual_seed(0))
+        moved = copy.deepcopy(batch)
+        noise = torch.randn(moved.rays.origins.shape,
+                            generator=torch.Generator().manual_seed(5))
+        moved.rays.origins = moved.rays.origins * (1 + 1e-7 * noise.numpy())
+        readings = {}
+        for dtype in (torch.float32, torch.float64):
+            loss_c, grads_c = loss_and_grads(model, batch, "cpu", dtype)
+            loss_g, grads_g = loss_and_grads(model, batch, dev, dtype)
+            readings[dtype] = (abs(loss_g - loss_c) / abs(loss_c),
+                               worst(grads_g, grads_c), len(grads_c))
+        _, grads_m = loss_and_grads(model, moved, "cpu", torch.float32)
+        self32 = worst(grads_m, loss_and_grads(model, batch, "cpu",
+                                               torch.float32)[1])
+        (l32, g32, n), (l64, g64, _) = (readings[torch.float32],
+                                        readings[torch.float64])
+        bound32 = 3 * max(self32, 1e-4) if variant == "NeRF-W" else 1e-4
+        print(f"check vanilla toy ({variant}) cuda vs cpu over {n} leaves: "
+              f"fp32 loss rel {l32:.2e} (bound 1e-05), gradients "
+              f"{g32:.2e} of the leaf's max (bound {bound32:.2e}; the CPU "
+              f"against itself with the origins moved by 1e-7: "
+              f"{self32:.2e}); fp64 loss rel {l64:.2e} (bound 1e-05), "
+              f"gradients {g64:.2e} (bound 1e-04)", flush=True)
+        check(l32 <= 1e-5 and l64 <= 1e-5,
+              f"toy vanilla loss differs ({variant})")
+        check(g32 <= bound32 and g64 <= 1e-4,
+              f"toy vanilla gradients differ ({variant})")
+
+
+def vanilla_step_flops(cfg_path: str) -> float:
+    """The GEMM operations of one train step of the vanilla yaml at
+    `cfg_path`, counting the products autograd runs: PointMLP's
+    multiply-adds a sample (the trunk's skip widens the layer after it)
+    x 2 x the coarse and the fine pass's samples for the forward, once
+    more for the weight gradients and once more for the input gradients
+    but those of each trunk's first layer (its encoding carries none)."""
+    from nerf_hugs_torch.configs import config as cfg
+    from nerf_hugs_torch.train import driver
+    config = driver.load_config(cfg_path, "", "")
+    nc = config.nerfacto
+    c = cfg.MLPConfig(net_depth=nc.net_depth, net_width=nc.net_width,
+                      min_deg_point=nc.min_deg_point,
+                      max_deg_point=nc.max_deg_point, deg_view=nc.deg_view)
+    first = 3 + 6 * (c.max_deg_point - c.min_deg_point)
+    macs, d = 0, first
+    for i in range(c.net_depth):
+        macs += d * c.net_width
+        d = c.net_width + (first if i % c.skip_layer == 0 and i > 0 else 0)
+    macs += d * (1 + c.bottleneck_width)
+    view = c.bottleneck_width + 3 + 6 * c.deg_view
+    for i in range(c.net_depth_viewdirs):
+        macs += view * c.net_width_viewdirs
+        view = c.net_width_viewdirs
+    macs += view * c.num_rgb_channels
+    coarse = nc.num_coarse_nerf_samples_per_ray
+    samples = config.batch_size * (coarse + coarse
+                                   + nc.num_fine_nerf_samples_per_ray)
+    return 2 * samples * (3 * macs - first * c.net_width)
+
+
+def vanilla_phase(torch, tmp: str, scene: str, phototourism: str, dev):
+    """Phase 15: vanilla NeRF (15a the toy model card vs CPU; 15b-c the
+    shipped yamls at full width through the drivers)."""
+    from nerf_hugs_torch.tools.hashgrid_inputs import shipped_yaml
+    vanilla_small_phase(torch, tmp, dev)
+    exp = lambda name: os.path.join(tmp, "exp", f"nerf_{name}")
+    base = shipped_yaml(tmp, "kubric_nerf_base")
+    _, _, reading = mip_train(torch, base, scene, exp("base"),
+                              "vanilla kubric_nerf_base", 8, profile=True)
+    eval_phase(torch, base, scene, exp("base"), "vanilla kubric_nerf_base",
+               NOT_ANY, score=False)
+    flops = vanilla_step_flops(base)
+    print(f"vanilla kubric_nerf_base: {reading['steps_per_s']:.3f} steps/s, "
+          f"device {reading['device_ms']:.3f} ms per step, busy "
+          f"{reading['busy']:.3f}, peak {reading['peak_gib']:.2f} GiB, "
+          f"GEMMs {flops / 1e12:.3f} TFLOP in "
+          f"{reading['split']['gemm']:.3f} ms "
+          f"({flops / reading['split']['gemm'] / 1e9:.1f} TFLOP/s)",
+          flush=True)
+    _, terms, _ = mip_train(torch, shipped_yaml(tmp, "kubric_nerf_hanerf",
+                                                steps=4),
+                            scene, exp("hanerf"), "vanilla kubric_nerf_hanerf",
+                            4)
+    check(all(float(t["mask_size"]) > 0 for t in terms["train"]),
+          f"the HA-NeRF steps have no mask_size term: {terms}")
+    nerfw = shipped_yaml(tmp, "phototourism_nerf_nerfw", steps=4,
+                         finetune_num_steps=2)
+    _, terms, _ = mip_train(torch, nerfw, phototourism, exp("nerfw"),
+                            "vanilla phototourism_nerf_nerfw", 4,
+                            finetune_steps=2)
+    check(all(math.isfinite(float(t[k])) for t in terms["train"]
+              for k in ("beta", "density")),
+          f"the NeRF-W steps lack finite beta/density terms: {terms}")
+    before = torch.load(os.path.join(exp("nerfw"), "checkpoint_4.pt"),
+                        weights_only=True)["model"]
+    after = torch.load(os.path.join(exp("nerfw"), "finetune",
+                                    "checkpoint_2.pt"),
+                       weights_only=True)["model"]
+    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    print(f"finetune (vanilla NeRF-W): 2 steps, losses "
+          f"{[t['data'] for t in terms['finetune']]}; moved {moved} of "
+          f"{len(before)} tensors", flush=True)
+    check(moved == ["appearance_embedding.weight"],
+          f"the finetune stage moved {moved}, not appearance_embedding")
+
+
+def render_phase(torch, cfg, data_dir: str, save_dir: str, tag: str,
+                 expected, out_name: str, frames, base: dict = None):
+    """The render driver over a run's newest checkpoint, with the
+    base-section keys `base` (a yaml) or gin bindings (a list) on top of
+    `cfg`; checks that it wrote the colour, acc and distance files of
+    `frames` into render/`out_name` (or render_dir), that the forward
+    kernels of `expected` launched and no other ported kernel did.
+    Returns (the output directory, the seconds each frame took, its
+    stdout)."""
+    import contextlib
+    import io
+
+    import yaml
+    from nerf_hugs_torch.render import main as render_main
+    if isinstance(cfg, str):
+        with open(cfg) as f:
+            raw = yaml.safe_load(f)
+        raw["base"].update(base or {})
+        cfg = os.path.join(os.path.dirname(cfg), f"render_{tag}.yml".replace(
+            " ", "_").replace(",", ""))
+        with open(cfg, "w") as f:
+            yaml.safe_dump(raw, f)
+        out_dir = (base or {}).get("render_dir") or os.path.join(save_dir,
+                                                                 "render")
+    else:
+        cfg = cfg + [f"--gin_bindings={b}" for b in base or []]
+        out_dir = os.path.join(save_dir, "render")
+    out_dir = os.path.join(out_dir, out_name)
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        render_main(config_args(cfg, data_dir, save_dir))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    log = buf.getvalue()
+    check(all(launches[k] > 0 for k in expected),
+          f"render ({tag}) did not run through the kernels: {launches}")
+    check(all(launches[k] == 0 for k in read_launches()
+              if k not in expected),
+          f"render ({tag}) launched a kernel off its path: {launches}")
+    seconds = [float(t) for t in re.findall(r"Rendered in (\S+)s", log)]
+    for i in frames:
+        for kind in ("color", "acc", "distance_mean", "distance_median"):
+            ext = "png" if kind == "color" else "tiff"
+            check(os.path.exists(os.path.join(out_dir, f"{kind}_{i:03d}."
+                                                       f"{ext}")),
+                  f"render ({tag}) wrote no {kind} of frame {i}")
+    colours = sorted(f for f in os.listdir(out_dir) if f.startswith("color_"))
+    height, width = png_shape(os.path.join(out_dir, colours[0]))
+    print(f"render ({tag}): {len(seconds)} frames of {width}x{height} in "
+          f"{wall:.1f} s, {colours}; seconds per frame {seconds}; launches "
+          f"{launches}", flush=True)
+    return out_dir, seconds, log
+
+
+def at_max_steps(cfg_path: str, steps: int) -> str:
+    """A copy of the yaml at `cfg_path` with num_steps (max_steps) set to
+    `steps`, beside it: the eval driver then evaluates a checkpoint of that
+    step at train_frac 1.0, where the render driver renders every frame."""
+    import yaml
+    with open(cfg_path) as f:
+        raw = yaml.safe_load(f)
+    raw["base"]["num_steps"] = steps
+    path = cfg_path.replace(".yml", f"_max{steps}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def render_phases(torch, dense_cfg, scene: str, dense_dir: str,
+                  fused_cfg, fused_tmp: str, fused_dir: str) -> None:
+    """Phase 16: the render driver over phase 7's and phase 8's
+    checkpoints. Their frames are held against the eval driver's images
+    with max_steps set to the checkpoints' 8 steps, so that both render at
+    train_frac 1.0."""
+    dense_end = at_max_steps(dense_cfg, 8)
+    eval_phase(torch, dense_end, scene, dense_dir, "Dense MLPs, kubric",
+               DENSE, score=False)
+    out, _, _ = render_phase(torch, dense_end, scene, dense_dir,
+                             "Dense kubric test split", ("hashgrid_fwd",),
+                             "test_preds_step_8", range(4))
+    for i in range(2):
+        same = (png_pixels(os.path.join(out, f"color_{i:03d}.png")) ==
+                png_pixels(os.path.join(dense_dir, "test_preds",
+                                        f"{i:03d}_color.png"))).all()
+        check(bool(same), f"render frame {i} differs from the eval's image")
+    print("render (Dense kubric): frames 0 and 1 equal the eval driver's "
+          "colour PNGs bit for bit", flush=True)
+    sharded = os.path.join(dense_dir, "sharded")
+    keys = {"render_num_jobs": 2, "render_job_id": 1,
+            "render_dir": sharded}
+    render_phase(torch, dense_cfg, scene, dense_dir, "job 1 of 2",
+                 ("hashgrid_fwd",), "test_preds_step_8", (1, 3), keys)
+    _, seconds, log = render_phase(torch, dense_cfg, scene, dense_dir,
+                                   "job 1 of 2 rerun", ("hashgrid_fwd",),
+                                   "test_preds_step_8", (1, 3), keys)
+    written = sorted(os.listdir(os.path.join(sharded, "test_preds_step_8")))
+    check([f for f in written if f.startswith("color_")]
+          == ["color_001.png", "color_003.png"],
+          f"job 1 of 2 wrote {written}")
+    check("Image 1/4 already exists, skipping" in log and len(seconds) == 1,
+          "the rerun of job 1 did not skip frame 1")
+    render_phase(torch, dense_cfg, scene, dense_dir, "ellipse path",
+                 ("hashgrid_fwd",), "path_renders_step_8", range(3),
+                 {"render_path": True, "render_path_frames": 3})
+    fused_end = at_max_steps(fused_cfg, 8)
+    eval_phase(torch, fused_end, fused_tmp, fused_dir, "fused MLPs", FUSED,
+               score=False)
+    out, _, _ = render_phase(torch, fused_end, fused_tmp, fused_dir,
+                             "fused bf16, job 0 of 16",
+                             ("hashgrid_fwd", "fused_mlp_fwd",
+                              "fused_mlp_fwd_resident"),
+                             "test_preds_step_8", (0, 16),
+                             {"render_num_jobs": 16, "render_job_id": 0})
+    check(bool((png_pixels(os.path.join(out, "color_000.png")) ==
+                png_pixels(os.path.join(fused_dir, "test_preds",
+                                        "000_color.png"))).all()),
+          "the fused render of frame 0 differs from the eval's image")
+    print("render (fused bf16): frame 0 equals the eval driver's colour PNG "
+          "bit for bit", flush=True)
+
+
+def llff_blender_phase(torch, tmp: str):
+    """Phase 17: llff (forward-facing through NDC, and 360) and blender
+    scenes, 4 steps and an eval of 1 image of each shipped gin, and the
+    render driver's spiral over the llff_256 run."""
+    from nerf_hugs_torch.tools.hashgrid_inputs import (write_blender_scene,
+                                                       write_llff_scene)
+    t0 = time.time()
+    scenes = {"llff_256": write_llff_scene(os.path.join(tmp, "llff"), True),
+              "360": write_llff_scene(os.path.join(tmp, "llff_360"), False),
+              "blender_256": write_blender_scene(os.path.join(tmp,
+                                                              "blender"))}
+    print(f"scenes: llff forward-facing and 360 (20 frames of 1008x756 in "
+          f"images_4/ each) and blender (8 + 2 frames of 800x800) written "
+          f"in {time.time() - t0:.1f} s", flush=True)
+    readings = {}
+    for name, data_dir in scenes.items():
+        flags = gin_flags(name, 4, "Config.eval_dataset_limit = 1")
+        save_dir = os.path.join(tmp, "exp", f"mip_{name}")
+        _, _, readings[name] = mip_train(torch, flags, data_dir, save_dir,
+                                         f"Mip-NeRF 360 {name}", 4)
+        # 4 steps from random weights: a mean SSIM below 0, within its
+        # range [-1, 1], is a possible reading.
+        eval_phase(torch, flags, data_dir, save_dir, name, NOT_ANY,
+                   score=False, summary="metrics_test_4.txt", images=1,
+                   ssim_min=-1.0)
+    spiral = gin_flags("llff_256", 4) + [
+        "--gin_configs=" + os.path.join(HERE, "configs", "mipnerf360",
+                                        "render_config.gin")]
+    render_phase(torch, spiral, scenes["llff_256"],
+                 os.path.join(tmp, "exp", "mip_llff_256"), "llff spiral",
+                 NOT_ANY, "path_renders_step_4", range(3),
+                 ["Config.render_path_frames = 3"])
+    print("llff / blender: " + "; ".join(
+        f"{name} {r['steps_per_s']:.3f} steps/s, peak {r['peak_gib']:.2f} "
+        f"GiB" for name, r in readings.items()), flush=True)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
@@ -1793,6 +2187,11 @@ def main() -> None:
         sam_card_phase(torch, dev)
         hugs_phase(torch, tmp, dev)
         mip_phase(torch, tmp, scene, distractor, phototourism, dev)
+        vanilla_phase(torch, tmp, scene, phototourism, dev)
+        render_phases(torch, dense_cfg, scene,
+                      os.path.join(tmp, "exp", "dense"), fused_cfg, tmp,
+                      fused_dir)
+        llff_blender_phase(torch, tmp)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

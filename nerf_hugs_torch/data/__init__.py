@@ -1,27 +1,45 @@
-"""Dataset registry: the procedural `synthetic` and `synthetic_distractor`
-scenes and the `kubric`, `distractor` and `phototourism` loaders. llff and
-blender wait for ROADMAP.md Queue 1 item 11b."""
+"""Dataset registry (reference names: MipNeRF360/internal/datasets.py:
+57-66, nerfacto/datasets/__init__.py:1-13): the procedural `synthetic`,
+`synthetic_distractor` and `synthetic_appearance` scenes and the `kubric`,
+`distractor`, `phototourism`, `llff` and `blender` loaders. The
+reference's Tanks-and-Temples and DTU loaders are stubs there and in JAX,
+and are refused here before anything is built; any other name is
+unknown, as JAX says (nerf_hugs_tpu/data/__init__.py:35-37)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+# The reference's stub loaders (MipNeRF360/internal/datasets.py:792, 841,
+# 908), by registry name.
+_STUBS = {"tat_nerfpp": "TanksAndTemplesNerfPP",
+          "tat_fvs": "TanksAndTemplesFVS", "dtu": "DTU"}
+
 
 def _loaders():
-    from nerf_hugs_torch.data import distractor, kubric, phototourism, \
-        synthetic
-    return {"kubric": kubric.Kubric, "distractor": distractor.Distractor,
+    from nerf_hugs_torch.data import blender, distractor, kubric, llff, \
+        phototourism, synthetic
+    return {"blender": blender.Blender, "llff": llff.LLFF,
+            "kubric": kubric.Kubric, "distractor": distractor.Distractor,
             "phototourism": phototourism.Phototourism,
             "synthetic": synthetic.Synthetic,
-            "synthetic_distractor": synthetic.SyntheticDistractor}
+            "synthetic_distractor": synthetic.SyntheticDistractor,
+            "synthetic_appearance": synthetic.SyntheticAppearance}
 
 
 def check_loader(config) -> None:
-    """Raise unless config.dataset_loader is ported."""
-    if config.dataset_loader not in _loaders():
+    """Raise unless config.dataset_loader names a loader: a stub of the
+    reference raises NotImplementedError, any other unknown name
+    ValueError."""
+    name = config.dataset_loader
+    if name in _STUBS:
         raise NotImplementedError(
-            f"dataset_loader {config.dataset_loader!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item 11b); ported: {sorted(_loaders())}")
+            f"{_STUBS[name]} is a stub in the reference too "
+            "(MipNeRF360/internal/datasets.py:792,841,908)")
+    if name not in _loaders():
+        raise ValueError(
+            f"unknown dataset_loader {name!r}; options: "
+            f"{sorted(list(_loaders()) + list(_STUBS))}")
 
 
 def load_dataset(split: str, data_dir: str, config, is_training: bool,

@@ -7,7 +7,10 @@ patches, gathered by the native threaded sampler (the port's copy of
 native/raysampler.cc, nerf_hugs_torch/native/) when g++ can build it, else
 by numpy. With sample_from_half_image (the finetune stage on the test
 split) patches come from the left half of each image only, leaving the
-right half for evaluation.
+right half for evaluation. With render_path (the render driver) a loader
+swaps its split's cameras for a generated path (_apply_render_path) and
+the batches carry no images; with enable_clip_near_far every ray's near
+and far are clipped to the scene's box (core/rayops.py).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from torch.nn import functional as F
 
 from nerf_hugs_torch.cameras import camera_utils
+from nerf_hugs_torch.core import rayops
 from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils import structs
 
@@ -33,7 +37,8 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
     Subclasses implement _load_renderings(config) and set images,
     static_masks, nears, fars (lists of [H, W, c] float arrays), heights,
     widths, embed_idxs ([N] arrays), camtoworlds [N, 3, 4],
-    pixtocams [N, 3, 3], distortion_params and camtypes (lists)."""
+    pixtocams [N, 3, 3], distortion_params and camtypes (lists), and
+    pixtocam_ndc [3, 3] for NDC rays (forward-facing llff)."""
 
     def __init__(self, split: str, is_training: bool,
                  sample_from_half_image: bool, batch_size: int,
@@ -51,10 +56,6 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
                 f"image_num_per_batch={self._image_num_per_batch} * "
                 f"patch_size={self._patch_size}^2 exceeds batch size "
                 f"{batch_size}")
-        if config.enable_clip_near_far:
-            raise NotImplementedError(
-                "enable_clip_near_far waits for core/rayops.py "
-                "(ROADMAP.md Queue 1 item 5)")
         self._test_camera_idx = 0
         self._rng = np.random.default_rng(
             np.random.SeedSequence([config.seed, 0, int(is_training)]))
@@ -64,6 +65,10 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         self.data_dir = data_dir
         self.near = config.near
         self.far = config.far
+        self.render_path = config.render_path
+        self._enable_clip_near_far = config.enable_clip_near_far
+        self._bound = config.bound
+        self.pixtocam_ndc: Optional[np.ndarray] = None
 
         self.images: List[np.ndarray] = None
         self.static_masks: List[np.ndarray] = None
@@ -80,7 +85,7 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         self._n_examples = self.camtoworlds.shape[0]
         if self.image_names is None:
             self.image_names = [f"{i:03d}" for i in range(self._n_examples)]
-        self.cameras = (self.pixtocams, self.camtoworlds, None)
+        self.cameras = (self.pixtocams, self.camtoworlds, self.pixtocam_ndc)
 
         # The native sampler gathers fixed 3-float rgb rows from cameras
         # that share distortion (compared as key-sorted items) and
@@ -92,8 +97,8 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
                          for d in self.distortion_params}) == 1
                     and len(set(self.camtypes)) == 1)
         homogeneous = one_lens and all(im.shape[-1] == 3
-                                       for im in self.images)
-        if is_training and homogeneous:
+                                       for im in self.images or [])
+        if is_training and not self.render_path and homogeneous:
             from nerf_hugs_torch.data import native_sampler
             try:
                 self._native = native_sampler.NativeSampler(
@@ -142,6 +147,78 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
     def _load_renderings(self, config):
         ...
 
+    def _apply_render_path(self, config,
+                           render_poses: Optional[np.ndarray] = None):
+        """With config.render_path, swap this split's cameras for a render
+        path (nerf_hugs_tpu/data/base.py:163-228); loaders call it at the
+        end of _load_renderings. The poses come from, in this order:
+          1. config.render_path_file, an .npy of [n, 3|4, 4] camera-to-world
+             poses in this loader's world frame;
+          2. config.render_spline_keyframes, a spline through the named
+             keyframes (camera_utils.create_render_spline_path);
+          3. `render_poses` from the caller (llff's spiral or ellipse);
+          4. an ellipse fit to this split's poses.
+        Intrinsics, near, far and lens are camera 0's; render_resolution
+        (width, height) rescales its pixtocam and fills near and far with
+        camera 0's extremes. The frames have no images, masks of ones and
+        embedding index 0."""
+        if not self.render_path:
+            return
+        if config.render_path_file:
+            with open(config.render_path_file, "rb") as fp:
+                poses = np.load(fp)
+            if poses.shape[-2:] == (4, 4):
+                poses = poses[:, :3, :]
+        elif config.render_spline_keyframes:
+            self.spline_indices, poses = \
+                camera_utils.create_render_spline_path(
+                    config, self.image_names
+                    or [f"{i:03d}" for i in range(len(self.camtoworlds))],
+                    self.camtoworlds)
+        elif render_poses is not None:
+            poses = render_poses
+        else:
+            poses = camera_utils.generate_ellipse_path(
+                self.camtoworlds, n_frames=config.render_path_frames,
+                z_variation=config.z_variation, z_phase=config.z_phase)
+        n = poses.shape[0]
+        self.render_poses = poses
+        self.camtoworlds = np.asarray(poses, np.float32)
+        height, width = int(self.heights[0]), int(self.widths[0])
+        pixtocam = self.pixtocams[0]
+        near0, far0 = self.nears[0], self.fars[0]
+        if config.render_resolution is not None:
+            new_w, new_h = config.render_resolution
+            pixtocam = pixtocam @ np.diag(
+                [width / new_w, height / new_h, 1.0]).astype(pixtocam.dtype)
+            height, width = int(new_h), int(new_w)
+            near0 = np.full((height, width, 1), float(near0.min()),
+                            np.float32)
+            far0 = np.full((height, width, 1), float(far0.max()), np.float32)
+        self.pixtocams = np.repeat(pixtocam[None], n, axis=0)
+        self.heights = np.full(n, height, self.heights.dtype)
+        self.widths = np.full(n, width, self.widths.dtype)
+        self.distortion_params = [self.distortion_params[0]] * n
+        self.camtypes = [self.camtypes[0]] * n
+        self.nears = [near0] * n
+        self.fars = [far0] * n
+        self.static_masks = [np.ones((height, width, 1), np.float32)] * n
+        self.embed_idxs = np.zeros(n, self.embed_idxs.dtype)
+        self.images = None
+        self.image_names = [f"{i:03d}" for i in range(n)]
+
+    def _maybe_clip_near_far(self, rays: structs.Rays) -> structs.Rays:
+        """With enable_clip_near_far, each ray's near and far clipped to
+        the [-bound, bound]^3 box (nerf_hugs_tpu/data/base.py:252-263)."""
+        if not self._enable_clip_near_far:
+            return rays
+        flat = lambda a, d: a.reshape(-1, d)
+        near, far = rayops.clip_near_far_to_aabb(
+            flat(rays.origins, 3), flat(rays.directions, 3),
+            flat(rays.near, 1), flat(rays.far, 1), self._bound)
+        return dataclasses.replace(rays, near=near.reshape(rays.near.shape),
+                                   far=far.reshape(rays.far.shape))
+
     def _make_ray_batch(self, pix_x_int: np.ndarray, pix_y_int: np.ndarray,
                         cam_idx: int) -> structs.Batch:
         """Pixel coords of one camera -> cast Rays (+ gt rgb)."""
@@ -158,8 +235,9 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
             self.cameras, pixels, self.heights, self.widths,
             self.distortion_params[cam_idx], self.camtypes[cam_idx],
             self._undistorted)
-        return structs.Batch(rays=rays,
-                             rgb=self.images[cam_idx][pix_y_int, pix_x_int])
+        rgb = (None if self.images is None
+               else self.images[cam_idx][pix_y_int, pix_x_int])
+        return structs.Batch(rays=self._maybe_clip_near_far(rays), rgb=rgb)
 
     def _next_train(self) -> structs.Batch:
         """Random dilated patches from image_num_per_batch random images,
@@ -211,7 +289,7 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         rays = camera_utils.cast_ray_batch(
             self.cameras, pixels, self.heights, self.widths,
             self.distortion_params[0], self.camtypes[0], self._undistorted)
-        return structs.Batch(rays=rays, rgb=rgb)
+        return structs.Batch(rays=self._maybe_clip_near_far(rays), rgb=rgb)
 
     def generate_ray_batch(self, cam_idx: int) -> structs.Batch:
         """All rays of one camera, as an [H, W, ...] batch (eval)."""

@@ -10,8 +10,8 @@ Poses are PCA-aligned, centred on the SfM points and scaled into the unit
 cube; the per-image near is the 0.1-percentile depth of the points in the
 camera's frustum x 0.8 (the reference's margin), the far is the config's.
 Embedding indices follow train + test order, so the test split's come
-after the train split's. The render-path mode of the JAX loader belongs
-to the render entry point (ROADMAP.md Queue 1 item 15).
+after the train split's. With render_path the split's cameras give way to
+a render path (base.Dataset._apply_render_path).
 """
 
 from __future__ import annotations
@@ -132,3 +132,4 @@ class Distractor(base.Dataset):
         self.embed_idxs = np.array(embeds)
         self.camtoworlds = np.stack(c2ws, axis=0)
         self.pixtocams = np.stack(p2cs, axis=0)
+        self._apply_render_path(config)

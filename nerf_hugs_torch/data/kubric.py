@@ -14,7 +14,8 @@ The shipped far plane is too tight; it is scaled by 1.2 as the reference
 does (datasets.py:999). RGBA images keep their alpha for the nerfacto
 dialect (the loss composites the target over the model's background) and
 are composited over white for mipnerf360. Test images take the embedding
-rows after the train images'.
+rows after the train images'. With render_path the split's cameras give
+way to a render path (base.Dataset._apply_render_path).
 """
 
 from __future__ import annotations
@@ -134,3 +135,4 @@ class Kubric(base.Dataset):
         self.embed_idxs = embed_offset + np.arange(len(names))
         self.camtoworlds = np.stack(c2ws, axis=0)
         self.pixtocams = np.stack(p2cs, axis=0)
+        self._apply_render_path(config)

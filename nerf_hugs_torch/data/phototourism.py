@@ -13,8 +13,8 @@ percentiles of the SfM points' depths in front of the camera. With a
 downsample factor, images shrink bilinearly with half-pixel centres
 (base.resize_bilinear; JAX calls cv2.resize, which computes the same
 within 1e-6). Each image keeps its own intrinsics; PINHOLE cameras cast
-rays with no undistortion. The render-path mode of the JAX loader belongs
-to the render entry point (ROADMAP.md Queue 1 item 15).
+rays with no undistortion. With render_path the split's cameras give way to
+a render path (base.Dataset._apply_render_path).
 """
 
 from __future__ import annotations
@@ -155,3 +155,4 @@ class Phototourism(base.Dataset):
         self.embed_idxs = np.array(embeds)
         self.camtoworlds = np.stack(c2ws, axis=0)
         self.pixtocams = np.stack(p2cs, axis=0)
+        self._apply_render_path(config)

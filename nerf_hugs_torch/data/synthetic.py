@@ -1,9 +1,11 @@
 """In-memory procedural dataset: lookat cameras around a shaded sphere.
 
 Twin of nerf_hugs_tpu/data/synthetic.py (`Synthetic`,
-`SyntheticDistractor`): the same images, cameras, held-out test views and
-distractor squares, generated from fixed seeds with no disk access, so a
-NeRF can fit them at any configured resolution.
+`SyntheticDistractor`, `SyntheticAppearance`): the same images, cameras,
+held-out test views, distractor squares and per-image tints, generated
+from fixed seeds with no disk access, so a NeRF can fit them at any
+configured resolution. With render_path the split's cameras give way to
+a render path (base.Dataset._apply_render_path).
 """
 
 from __future__ import annotations
@@ -86,8 +88,30 @@ class Synthetic(base.Dataset):
         self.pixtocams = np.stack(p2cs, axis=0)
         self.distortion_params = [None] * n
         self.camtypes = [camera_utils.ProjectionType.PERSPECTIVE] * n
+        self._apply_render_path(config)
 
 
 class SyntheticDistractor(Synthetic):
     """The synthetic scene with a transient square in every train image."""
     DISTRACTORS = True
+
+
+class SyntheticAppearance(Synthetic):
+    """The synthetic scene with one multiplicative colour tint per image
+    (the per-photo appearance that appearance embeddings model), and a
+    distinct embedding row for every image: train images take rows
+    [0, n), test images [n, 2n), so the test appearances are learnt only
+    by the finetune stage."""
+
+    def _load_renderings(self, config):
+        super()._load_renderings(config)
+        if self.images is None:
+            # A render path: no images to tint, and index 0 throughout.
+            return
+        n = len(self.images)
+        offset = n if self.split == structs.DataSplit.TEST else 0
+        self.embed_idxs = self.embed_idxs + offset
+        tint_rng = np.random.RandomState(7)
+        tints = 0.25 + 0.75 * tint_rng.rand(2 * n, 3).astype(np.float32)
+        self.images = [img * tints[offset + i]
+                       for i, img in enumerate(self.images)]

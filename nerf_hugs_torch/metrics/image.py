@@ -1,10 +1,11 @@
 """Image metrics and colour processing for evaluation.
 
 Twin of nerf_hugs_tpu/metrics/image.py: alpha compositing of GT images,
-PSNR <-> MSE, the iterative per-channel quadratic colour correction (float64
-numpy, as the reference's eval protocol solves it) and the MetricHarness
-that eval and the in-train eval score with (PSNR, SSIM, and LPIPS when a
-weights file is given).
+PSNR <-> MSE, the area downsample of the blender loader, the iterative
+per-channel quadratic colour correction (float64 numpy, as the
+reference's eval protocol solves it) and the MetricHarness that eval and
+the in-train eval score with (PSNR, SSIM, and LPIPS when a weights file
+is given).
 """
 
 from __future__ import annotations
@@ -40,6 +41,19 @@ def mse_to_psnr(mse) -> torch.Tensor:
 def psnr_to_mse(psnr) -> torch.Tensor:
     psnr = torch.as_tensor(psnr, dtype=torch.float32)
     return torch.exp(-0.1 * math.log(10.0) * psnr)
+
+
+def downsample(img: np.ndarray, factor: int) -> np.ndarray:
+    """Area (box-filter) downsample; factor must divide both spatial
+    dims."""
+    sh = img.shape
+    if sh[0] % factor or sh[1] % factor:
+        raise ValueError(
+            f"downsample factor {factor} does not divide image shape "
+            f"{sh[:2]}")
+    img = img.reshape((sh[0] // factor, factor, sh[1] // factor, factor)
+                      + sh[2:])
+    return img.mean(axis=(1, 3))
 
 
 def color_correct(img, ref, num_iters: int = 5, eps: float = 0.5 / 255):

@@ -33,9 +33,8 @@ def backbone(config) -> Backbone:
         from nerf_hugs_torch.models import nerfacto as module
         model = module.NerfactoModel
     elif config.model_type == "nerf":
-        raise NotImplementedError(
-            "model_type 'nerf' is not ported yet (ROADMAP.md Queue 1 item "
-            "13)")
+        from nerf_hugs_torch.models import vanilla as module
+        model = module.VanillaNerfModel
     else:
         raise ValueError(f"unknown model_type {config.model_type!r}")
     return Backbone(model, module.check_transient_config, module.module_names)

@@ -30,6 +30,11 @@ MipNerf360Model onto MipNerf360Model.state_dict() of this package:
   {GloEmbed_0,TransientEmbed_0}/embedding [num, dim]
                                          -> {..}.weight, as it is
 
+convert_vanilla_params maps the flax tree of nerf_hugs_tpu's
+VanillaNerfModel onto VanillaNerfModel.state_dict() of this package by the
+same two rules: {coarse,fine,implicit_mask}/Dense_k -> {..}.Dense_k and
+{appearance,transient}_embedding/embedding -> {..}.weight.
+
 sam_state_dict maps the flax tree of nerf_hugs_tpu's SAM
 (hugs/sam/modeling.py) onto segment-anything's state-dict keys, which the
 port's Sam uses (block_i -> blocks.i, layer_i -> layers.i, hyper_mlp_i ->
@@ -116,20 +121,22 @@ def convert_nerfacto_params(flax_params: Dict[str, Any]
 
 _MIPNERF360_MLPS = ("NerfMLP_0", "PropMLP_0", "ImplicitMask_0")
 _MIPNERF360_EMBEDS = ("GloEmbed_0", "TransientEmbed_0")
+_VANILLA_MLPS = ("coarse", "fine", "implicit_mask")
 
 
-def convert_mipnerf360_params(flax_params: Dict[str, Any]
-                              ) -> Dict[str, torch.Tensor]:
-    """flax params (nested dicts of numpy arrays, with or without the top
-    'params' key) -> a state_dict for nerf_hugs_torch MipNerf360Model."""
+def _convert_dense_modules(flax_params: Dict[str, Any], mlps, embeds
+                           ) -> Dict[str, torch.Tensor]:
+    """A flax tree of top-level modules that each hold Dense_k layers
+    (`mlps`) or one embedding table (`embeds`) -> {top}.Dense_k.weight
+    (the kernel transposed), {top}.Dense_k.bias and {top}.weight."""
     params = flax_params.get("params", flax_params)
     state: Dict[str, torch.Tensor] = {}
     as_tensor = lambda a: torch.from_numpy(np.array(a, np.float32))
     for top, leaves in params.items():
-        if top in _MIPNERF360_EMBEDS and set(leaves) == {"embedding"}:
+        if top in embeds and set(leaves) == {"embedding"}:
             state[f"{top}.weight"] = as_tensor(leaves["embedding"])
             continue
-        if top not in _MIPNERF360_MLPS:
+        if top not in mlps:
             raise ValueError(f"unexpected flax module {top}")
         for dense, p in leaves.items():
             if (_DENSE_RE.match(dense) is None or not hasattr(p, "items")
@@ -139,6 +146,21 @@ def convert_mipnerf360_params(flax_params: Dict[str, Any]
                 np.asarray(p["kernel"]).T)
             state[f"{top}.{dense}.bias"] = as_tensor(p["bias"])
     return state
+
+
+def convert_mipnerf360_params(flax_params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """flax params (nested dicts of numpy arrays, with or without the top
+    'params' key) -> a state_dict for nerf_hugs_torch MipNerf360Model."""
+    return _convert_dense_modules(flax_params, _MIPNERF360_MLPS,
+                                  _MIPNERF360_EMBEDS)
+
+
+def convert_vanilla_params(flax_params: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """flax params (nested dicts of numpy arrays, with or without the top
+    'params' key) -> a state_dict for nerf_hugs_torch VanillaNerfModel."""
+    return _convert_dense_modules(flax_params, _VANILLA_MLPS, _EMBEDDINGS)
 
 
 _SAM_SEGMENTS = (

@@ -452,6 +452,142 @@ def write_colmap_scene(root: str, layout: str, num_train: int = 32,
     return data_dir
 
 
+# The written llff captures (write_llff_scene): frames of images_4/ at this
+# size, (width, height), and the COLMAP camera at LLFF_FACTOR times it.
+LLFF_SIZE = (1008, 756)
+LLFF_FACTOR = 4
+
+
+def write_llff_scene(root: str, forward_facing: bool, num_images: int = 20,
+                     size=LLFF_SIZE) -> str:
+    """The procedural sphere world of data/synthetic.py as an llff capture
+    under `root` (data/llff.py): sparse/0 (binary COLMAP model: one PINHOLE
+    camera at LLFF_FACTOR times `size`, one image per frame, 4096 points
+    on the sphere), images_4/ with the frames at `size` (width, height),
+    images/ with the same files (the loader reads only their names there,
+    to pair them with images_4/), and poses_bounds.npy, whose last two
+    columns hold each camera's near and
+    far bound on the sphere's depth (the loader reads only those; the
+    first 15 are the camera-to-world pose and (height, width, focal), as
+    LLFF writes them).
+
+    forward_facing: the cameras sit on a 5 x 4 grid in a plane at distance
+    2.5 from the sphere (radius 0.5) and look at it, as an llff_*.gin
+    capture; otherwise they ring it at height 1.2, as a 360*.gin capture. Every llffhold-th frame in name order is a test
+    frame. Returns `root`."""
+    import numpy as np
+    from PIL import Image
+
+    from nerf_hugs_torch.cameras import camera_utils, colmap
+    from nerf_hugs_torch.data.synthetic import _sphere_world_color
+    rng = np.random.RandomState(0)
+    factor = LLFF_FACTOR
+    width, height = size
+    full_w, full_h = width * factor, height * factor
+    focal = 0.9 * full_w
+    model_dir = os.path.join(root, "sparse", "0")
+    image_dirs = [os.path.join(root, "images"),
+                  os.path.join(root, f"images_{factor}")]
+    for d in [model_dir] + image_dirs:
+        os.makedirs(d, exist_ok=True)
+    radius = 0.5
+    cameras = {1: colmap.Camera(1, "PINHOLE", full_w, full_h, np.array(
+        [focal, focal, full_w / 2, full_h / 2]))}
+    images, poses_bounds = {}, []
+    pixtocam = np.linalg.inv(camera_utils.intrinsic_matrix(
+        focal, focal, full_w / 2, full_h / 2)) @ np.diag(
+            [factor, factor, 1.0])
+    xg, yg = camera_utils.pixel_coordinates(width, height)
+    for i in range(num_images):
+        if forward_facing:
+            gx, gy = i % 5 - 2, i // 5 % 4 - 1.5
+            position = np.array([0.15 * gx, 0.15 * gy, 2.5])
+            up = np.array([0.0, 1, 0])
+        else:
+            theta = 2 * np.pi * i / num_images
+            position = np.array([2.5 * np.cos(theta), 2.5 * np.sin(theta),
+                                 1.2 + 0.1 * rng.randn()])
+            up = np.array([0.0, 0, 1])
+        c2w = camera_utils.viewmatrix(camera_utils.normalize(position), up,
+                                      position)
+        w2c = np.linalg.inv(camera_utils.pad_poses(
+            c2w @ np.diag([1.0, -1.0, -1.0, 1.0])))
+        name = f"IMG_{i:04d}.png"
+        images[i + 1] = colmap.Image(
+            i + 1, colmap.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, name,
+            np.zeros((0, 2)), np.zeros(0, np.int64))
+        origins, dirs, _, _ = camera_utils.pixels_to_rays(
+            xg, yg, pixtocam, c2w)
+        image = _sphere_world_color(origins, dirs, radius=radius)
+        for d in image_dirs:
+            Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
+                os.path.join(d, name))
+        dist = np.linalg.norm(position)
+        bounds = [0.9 * (dist - radius), 1.1 * (dist + radius)]
+        poses_bounds.append(np.concatenate([
+            np.concatenate([c2w, np.array([[full_h], [full_w], [focal]])],
+                           1).ravel(), bounds]))
+    xyz, rgb = _sphere_points(rng, radius, 4096)
+    track = np.arange(1, num_images + 1)
+    points = {j + 1: colmap.Point3D(j + 1, xyz[j], rgb[j], 0.5, track,
+                                    np.zeros(num_images, np.int64))
+              for j in range(len(xyz))}
+    colmap.write_cameras_binary(cameras, os.path.join(model_dir,
+                                                      "cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(model_dir, "images.bin"))
+    colmap.write_points3D_binary(points, os.path.join(model_dir,
+                                                      "points3D.bin"))
+    np.save(os.path.join(root, "poses_bounds.npy"),
+            np.array(poses_bounds, np.float64))
+    return root
+
+
+def write_blender_scene(root: str, num_train: int = 8, num_test: int = 2,
+                        size: int = 800) -> str:
+    """The procedural sphere world (radius 1) in the NeRF-synthetic layout
+    under `root` (data/blender.py): transforms_{train,test}.json with
+    camera_angle_x 0.6911 (the published scenes') and per-frame
+    {file_path, transform_matrix}, and RGBA PNGs of size x size in
+    train/ and test/, alpha 1 on the sphere and 0 elsewhere. The cameras
+    ring the sphere at radius 4 (between blender_*.gin's near 2 and far
+    6) and height 1.5; test views sit between the train views. Returns
+    `root`."""
+    import numpy as np
+    from PIL import Image
+
+    from nerf_hugs_torch.cameras import camera_utils
+    from nerf_hugs_torch.data.synthetic import _sphere_world_color
+    angle_x = 0.6911
+    focal = 0.5 * size / np.tan(0.5 * angle_x)
+    pixtocam = camera_utils.get_pixtocam(focal, size, size)
+    xg, yg = camera_utils.pixel_coordinates(size, size)
+    for split, n in (("train", num_train), ("test", num_test)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            theta = 2 * np.pi * (i + 0.5 * (split == "test")) / n
+            position = np.array([4 * np.cos(theta), 4 * np.sin(theta), 1.5])
+            c2w = camera_utils.viewmatrix(camera_utils.normalize(position),
+                                          np.array([0.0, 0, 1]), position)
+            origins, dirs, _, _ = camera_utils.pixels_to_rays(
+                xg, yg, pixtocam, c2w)
+            d = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+            b = np.sum(origins * d, -1)
+            hit = b * b - (np.sum(origins * origins, -1) - 1.0) > 0
+            rgba = np.concatenate([
+                _sphere_world_color(origins, dirs, radius=1.0)
+                * hit[..., None], hit[..., None]], -1)
+            Image.fromarray(np.round(rgba * 255).astype(np.uint8),
+                            "RGBA").save(os.path.join(root, split,
+                                                      f"r_{i}.png"))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": camera_utils.pad_poses(
+                               c2w).tolist()})
+        _write_json(os.path.join(root, f"transforms_{split}.json"),
+                    {"camera_angle_x": angle_x, "frames": frames})
+    return root
+
+
 def _write_json(path: str, obj) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

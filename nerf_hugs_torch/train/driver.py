@@ -178,8 +178,6 @@ def main(argv=None):
     pin_fp32_precision()
 
     os.makedirs(config.checkpoint_dir, exist_ok=True)
-    checkpoints.check_model_compat(config.checkpoint_dir, config)
-    checkpoints.record_model_compat(config.checkpoint_dir, config)
     with open(os.path.join(config.checkpoint_dir, "config.gin"), "w") as f:
         f.write(gin_parser.config_str(config))
     recorder = Recorder(config.checkpoint_dir)
@@ -233,6 +231,10 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
         batch_size = config.batch_size
         if config.early_exit_steps is not None:
             num_steps = min(num_steps, config.early_exit_steps)
+    # Each stage's directory carries its own compat sidecar: the render
+    # driver checks the directory it restores.
+    checkpoints.check_model_compat(ckpt_dir, config)
+    checkpoints.record_model_compat(ckpt_dir, config)
     dataset = stage_dataset(stage, config)
     check_num_embeddings(config, dataset, stage)
     init_step = checkpoints.restore_checkpoint(ckpt_dir, model, optimizer,

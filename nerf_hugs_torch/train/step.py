@@ -88,22 +88,29 @@ FINETUNE_GROUPS = ("field", "proposal", "appearance_embedding",
 def finetune_partitions(config, names: Iterable[str]) -> Dict[str, str]:
     """{parameter name: 'trainable' | 'frozen'} for the finetune stage, in
     the two dialects of nerf_hugs_tpu/train/step.py:97-154.
-    nerfacto: the trainable set is config.finetune_params, a list of the
-    model's param groups (FINETUNE_GROUPS): a group takes the parameters
-    of the top-level module of its name, 'proposal' those of
-    proposal_0..k-1, and a group that matches no parameter raises.
+    nerfacto and nerf: the trainable set is config.finetune_params, a list
+    of the model's param groups (FINETUNE_GROUPS): a group takes the
+    parameters of the top-level module of its name, 'proposal' those of
+    proposal_0..k-1, vanilla NeRF's 'field' those of coarse and fine, and
+    a group that matches no parameter raises.
     mipnerf360: `'embedding' in path`, every nn.Embed leaf of the flax
     tree, i.e. the nn.Embedding tables GloEmbed_0 and TransientEmbed_0."""
     if config.model_type == "mipnerf360":
         return {name: ("trainable" if name.split(".")[0] in EMBED_MODULES
                        else "frozen") for name in names}
     groups = tuple(config.finetune_params or ())
+    # Vanilla NeRF's group 'field' is the reference's self.field, which
+    # holds both MLPs (nerf.py:228-231): the modules coarse and fine here.
+    tops = lambda g: (("coarse", "fine")
+                      if g == "field" and config.model_type == "nerf"
+                      else (g,))
     matched = set()
     labels = {}
     for name in names:
         top = name.split(".")[0]
         hit = [g for g in groups
-               if top == g or (g == "proposal" and top.startswith("proposal"))]
+               if top in tops(g)
+               or (g == "proposal" and top.startswith("proposal"))]
         matched.update(hit)
         labels[name] = "trainable" if hit else "frozen"
     missing = [g for g in groups if g not in matched]

@@ -119,13 +119,23 @@ def test_synthetic_data_matches_jax():
 
 
 def test_unported_loaders_and_options_raise():
-    for loader in ("llff", "blender"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The reference's stub loaders raise as JAX's do, a loader neither
+    package has raises JAX's ValueError, and enable_clip_near_far, once
+    refused, now clips every ray to the scene's box."""
+    for loader in ("tat_nerfpp", "tat_fvs", "dtu"):
+        with pytest.raises(NotImplementedError, match="stub"):
             load_dataset("train", "", tu.tiny_config(
                 base={"dataset_type": loader}), is_training=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown dataset_loader"):
         load_dataset("train", "", tu.tiny_config(
-            base={"enable_clip_near_far": True}), is_training=True)
+            base={"dataset_type": "robust"}), is_training=True)
+    clipped = load_dataset("test", "", tu.tiny_config(
+        base={"enable_clip_near_far": True, "bound": 0.3}),
+        is_training=False).generate_ray_batch(0).rays
+    plain = load_dataset("test", "", tu.tiny_config(),
+                         is_training=False).generate_ray_batch(0).rays
+    assert np.all(clipped.near >= plain.near)
+    assert np.any(clipped.near > plain.near)
 
 
 def test_render_image_is_chunk_invariant():

@@ -21,8 +21,6 @@ GINS = sorted((REPO / "configs" / "mipnerf360").glob("*.gin"))
 SCRIPT_BINDINGS = ["Config.data_dir = '/data/kubric_dataset/kubric_car'",
                    "Config.checkpoint_dir = './nerf_results/x/kubric_car'"]
 OVERLAYS = [p for p in GINS if p.stem.endswith("_tpu_bf16")]
-# Loaders the port does not have yet (ROADMAP.md Queue 1 item 11b).
-UNPORTED_LOADERS = ("llff", "blender")
 
 
 def test_every_mipnerf360_gin_is_covered():
@@ -113,13 +111,9 @@ def test_kubric_robustnerf_gin_needs_patch_size_binding():
 @pytest.mark.parametrize("path", GINS, ids=lambda p: p.stem)
 def test_preflight_takes_every_gin_with_a_ported_loader(path):
     """The drivers' checks before they build anything pass on every
-    shipped gin but those whose loader waits for Queue 1 item 11b (the
-    robustnerf kubric config's patch quirk only shows in the loss)."""
+    shipped gin, the llff and blender ones included (the robustnerf kubric
+    config's patch quirk only shows in the loss)."""
     config = tgin.parse_gin_configs([str(path)], SCRIPT_BINDINGS)
-    if config.dataset_loader in UNPORTED_LOADERS:
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            driver.preflight(config)
-        return
     assert config.model_type == "mipnerf360"
     driver.preflight(config)
 

@@ -127,8 +127,13 @@ def test_undistort_and_distorted_rays_match_jax():
         np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12)
     plain = tcam.pixels_to_rays(xg, yg, pixtocam, c2w)
     assert not np.allclose(plain[1], got[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcam.pixels_to_rays(xg, yg, pixtocam, c2w, pixtocam_ndc=pixtocam)
+    # NDC (forward-facing llff) casts as JAX does.
+    got = tcam.pixels_to_rays(xg, yg, pixtocam, c2w, dist,
+                              pixtocam_ndc=pixtocam)
+    want = jcam.pixels_to_rays(xg, yg, pixtocam, c2w, dist,
+                               pixtocam_ndc=pixtocam, xnp=np)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12)
 
 
 def test_undistorted_grid_matches_the_per_ray_solve():
@@ -168,10 +173,11 @@ def test_synthetic_distractor_matches_jax():
 
 
 def test_registry_names_the_ported_loaders():
-    for loader in ("kubric", "synthetic", "synthetic_distractor"):
+    for loader in ("kubric", "synthetic", "synthetic_distractor", "llff",
+                   "blender", "synthetic_appearance"):
         assert loader in str(pytest.raises(
-            NotImplementedError, load_dataset, "train", "",
-            tu.tiny_config(base={"dataset_type": "llff"}),
+            ValueError, load_dataset, "train", "",
+            tu.tiny_config(base={"dataset_type": "robust"}),
             is_training=True).value)
 
 

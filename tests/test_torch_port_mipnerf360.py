@@ -389,9 +389,14 @@ def test_transient_checks_come_first():
         with pytest.raises(ValueError, match=match):
             construct_model(tgin.parse_gin_configs([], TOY + extra), "cpu",
                             torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="use_transient_embedding"):
         construct_model(tgin.parse_gin_configs(
-            [], ["Config.model_type = 'nerf'"]), "cpu", torch.Generator())
+            [], ["Config.model_type = 'nerf'",
+                 "Config.transient_type = 'nerfw'"]), "cpu",
+            torch.Generator())
+    with pytest.raises(ValueError, match="unknown model_type"):
+        construct_model(tgin.parse_gin_configs(
+            [], ["Config.model_type = 'other'"]), "cpu", torch.Generator())
 
 
 def test_render_image_carries_the_ray_bags(remat_case):

@@ -160,9 +160,10 @@ def test_eval_writes_the_hugs_pairs(kubric, tmp_path):
 
 def test_gin_dialect_refusals(kubric, tmp_path):
     ckpt = tmp_path / "ck"
-    # An llff config parses but waits for its loader.
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11b"):
-        driver.main(gin_args("llff_256", kubric, ckpt))
+    # A loader neither package has is refused as JAX refuses it.
+    with pytest.raises(ValueError, match="unknown dataset_loader"):
+        driver.main(gin_args("kubric_1024_base", kubric, ckpt,
+                             "Config.dataset_loader = 'robust'"))
     # Both directories must be set (train.py:45-60).
     with pytest.raises(ValueError, match="data_dir must be set"):
         driver.main([f"--gin_configs={GIN / 'kubric_1024_base.gin'}",
