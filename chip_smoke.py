@@ -63,7 +63,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      world at 256x256 in rgb/2x/, one lens with small radial and tangential
      distortion, an opaque random square in each train frame) and read by
      the kubric loader, with the hash-grid kernels' launch counters read
-     around the run;
+     around the run; then its tensorboard file tb_train (a print event
+     every step, the in-train eval at step 8) read back by this script's
+     own decoder (the record framing and both CRC-32Cs, then the Event
+     protobufs): every tag of train.py's summaries at its steps, the loss
+     terms those of the run log, finite values, with the host ms the
+     summaries add to a print event and to the render event;
   8. the same 8 steps with enable_tcnn_mlp on for the field and the
      proposal on the procedural `synthetic` scene, then
      `nerf_hugs_torch.eval.main` on its checkpoint (2 test images of
@@ -139,8 +144,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      (early_exit_steps, print_every, eval_dataset_limit), with a
      torch.profiler window over steps 5-7 (device ms per step split into
      GEMM, Adam, sort / searchsorted, reductions and elementwise, the wall
-     ms and the busy share), then an eval of 2 test images and the scoring
-     CLI, then max_dilate_weights and the lift + IPE alone at its shapes;
+     ms and the busy share), its tb_train read back as in phase 7, the ray
+     strips of its render event among the images (2048 x 1983: 16 rays of
+     3 levels), then an eval of 2 test images and the scoring CLI, then
+     max_dilate_weights and the lift + IPE alone at its shapes;
      (c) the same for kubric_1024_base_tpu_bf16.gin (bf16 + remat); (d) 4
      steps of kubric_1024_withmask.gin and of kubric_1024_robustnerf0.8.gin
      with the Config.patch_size = 16 binding its loss needs (the carried
@@ -189,7 +196,20 @@ Phases, each fatal on failure (exit code 1, no result line):
      cylinders), 360.gin (contraction, NerfMLP 8 x 1024) and
      blender_256.gin at their model sections, and the render driver over
      the llff_256 run with render_config.gin (the spiral path,
-     render_path_frames 3).
+     render_path_frames 3);
+  18. the import of released checkpoints: for kubric_nerfacto_base.yml and
+     kubric_nerf_base.yml at full width, a torch snapshot in the released
+     layout (tcnn flat grids in fp16, torch Linears, state.global_step at
+     the config's last step) made from a seeded numpy generator
+     (tools/released_snapshots.py), converted by `python -m
+     nerf_hugs_torch.tools.convert_reference_checkpoint` on the card
+     (seconds and peak device memory printed), then the eval (1 image:
+     the hash-grid forward must launch for nerfacto, no kernel for
+     vanilla) and render (1 frame) drivers on the output directory with
+     the config.yml it emitted (legacy_cumulative_deltas); test image 0 of
+     the converted checkpoint equals, bit for bit, the rendering of the
+     model loaded straight from the same flax tree through from_jax, and
+     so do the eval's and the render's colour PNGs.
 Each train run prints its steps/s over steps 2-8 and its peak device
 memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
@@ -877,21 +897,36 @@ def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
     from nerf_hugs_torch.train import driver
     from nerf_hugs_torch.train import main as train_main
     launches = {}
-    run_stage = driver.run_stage
+    patched = {name: getattr(driver, name) for name in
+               ("run_stage", "train_summaries", "render_summaries")}
+    summary_ms = SUMMARY_MS[save_dir] = {"train": [], "render": []}
 
     def counted_stage(stage, *args):
         reset_launches()
-        run_stage(stage, *args)
+        patched["run_stage"](stage, *args)
         torch.cuda.synchronize()
         launches[stage] = read_launches()
+
+    def timed(kind):
+        # The host time a print or render event spends on its summaries
+        # (render: the vis suite on the card, its one copy to the host and
+        # the PNG writes).
+        def call(*args):
+            t = time.perf_counter()
+            patched[f"{kind}_summaries"](*args)
+            summary_ms[kind].append((time.perf_counter() - t) * 1e3)
+        return call
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     driver.run_stage = counted_stage
+    driver.train_summaries = timed("train")
+    driver.render_summaries = timed("render")
     try:
         train_main(config_args(cfg_path, data_dir, save_dir))
     finally:
-        driver.run_stage = run_stage
+        for name, fn in patched.items():
+            setattr(driver, name, fn)
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -938,6 +973,172 @@ def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
           f"{terms['train'][-1]}; eval psnr {evals[0]}; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {train}", flush=True)
     return launches, terms
+
+
+# Tensorboard summaries (phases 7 and 14): what the train driver writes to
+# {save_dir}/tb_train, read back by this script's own decoder.
+SUMMARY_MS = {}            # {save_dir: {"train"|"render": [host ms]}}
+TRAIN_SCALARS = ("train_loss", "train_psnr", "train_steps_per_sec",
+                 "train_rays_per_sec", "learning_rate")
+TRAIN_HISTOGRAMS = ("train_loss_hist", "train_psnr_hist")
+RENDER_IMAGES = ("color", "acc", "color_matte", "depth_mean", "depth_median",
+                 "depth_triplet", "coords_mod")
+
+
+def _crc32c_table() -> list:
+    table = []
+    for n in range(256):
+        for _ in range(8):
+            n = (n >> 1) ^ 0x82F63B78 if n & 1 else n >> 1
+        table.append(n)
+    return table
+
+
+CRC32C_TABLE = _crc32c_table()
+
+
+def masked_crc32c(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    table = CRC32C_TABLE
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return ((((crc >> 15) | (crc << 17)) & 0xFFFFFFFF) + 0xA282EAD8) \
+        & 0xFFFFFFFF
+
+
+def proto_fields(buf: bytes) -> dict:
+    """{field number: [values]} of one protobuf message: ints for varints,
+    bytes for 64-bit and length-delimited fields."""
+    out, i = {}, 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _varint(buf, i)
+        elif wire == 1:
+            value, i = buf[i:i + 8], i + 8
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        else:
+            fail(f"protobuf wire type {wire} in a summary")
+        out.setdefault(field, []).append(value)
+    return out
+
+
+def _varint(buf: bytes, i: int):
+    value, shift = 0, 0
+    while True:
+        b = buf[i]
+        value |= (b & 0x7F) << shift
+        i, shift = i + 1, shift + 7
+        if not b & 0x80:
+            return value, i
+
+
+def read_summaries(log_dir: str) -> dict:
+    """{tag: [(step, plugin, value)]} of the one event file in `log_dir`,
+    each TFRecord's length and payload CRCs checked: scalars as floats,
+    histograms as [k, 3] float64 arrays, images as (width, height, PNGs)."""
+    import numpy as np
+    files = [f for f in os.listdir(log_dir)
+             if f.startswith("events.out.tfevents.")]
+    check(len(files) == 1, f"{log_dir} holds {files}")
+    with open(os.path.join(log_dir, files[0]), "rb") as f:
+        data = f.read()
+    out, i, events = {}, 0, 0
+    while i < len(data):
+        length = data[i:i + 8]
+        n = int.from_bytes(length, "little")
+        payload = data[i + 12:i + 12 + n]
+        check(int.from_bytes(data[i + 8:i + 12], "little")
+              == masked_crc32c(length)
+              and int.from_bytes(data[i + 12 + n:i + 16 + n], "little")
+              == masked_crc32c(payload), f"a bad record CRC in {files[0]}")
+        i += 16 + n
+        event = proto_fields(payload)
+        events += 1
+        if events == 1:
+            check(event.get(3) == [b"brain.Event:2"],
+                  "the first record is not the file_version event")
+            continue
+        step = event.get(2, [0])[0]
+        for value in proto_fields(event[5][0])[1]:
+            value = proto_fields(value)
+            tag = value[1][0].decode()
+            plugin = proto_fields(proto_fields(value[9][0])[1][0])[1][0]
+            tensor = proto_fields(value[8][0])
+            dims = [proto_fields(d).get(1, [0])[0]
+                    for d in proto_fields(tensor.get(2, [b""])[0]).get(2, [])]
+            if plugin == b"images":
+                strings = tensor[8]
+                value = (int(strings[0]), int(strings[1]), strings[2:])
+            else:
+                dtype = {1: np.float32, 2: np.float64}[tensor[1][0]]
+                value = np.frombuffer(tensor[4][0], dtype).reshape(dims)
+            out.setdefault(tag, []).append((step, plugin.decode(), value))
+    return out
+
+
+def check_summaries(save_dir: str, tag: str, steps: int, terms: dict,
+                    ray_strips: bool = False) -> None:
+    """The tb_train file of a run of `steps` train steps printing every
+    step with one in-train eval at the last: every tag of train.py's print
+    events (the loss terms of the run log) at every step, the eval's
+    metrics and the visualization suite's images at the last, Mip-NeRF
+    360's ray strips (`ray_strips`) among them; finite values, one count a
+    histogram (a buffer of one step), one PNG an image."""
+    summaries = read_summaries(os.path.join(save_dir, "tb_train"))
+    images = RENDER_IMAGES + (("ray_colors", "ray_weights") if ray_strips
+                              else ())
+    train = (TRAIN_SCALARS + TRAIN_HISTOGRAMS
+             + tuple(f"train_losses/{k}" for k in terms
+                     if k != "inlier_threshold"))
+    want = set(train) | {"train_avg_psnr_timed", "eval_psnr", "eval_ssim"} \
+        | {f"render_{k}" for k in images}
+    check(set(summaries) == want, f"{tag} summaries: tags "
+          f"{sorted(set(summaries) ^ want)} differ from train.py's")
+    for name in train:
+        check([s for s, _, _ in summaries[name]] == list(range(1, steps + 1)),
+              f"{tag} summaries: {name} at steps "
+              f"{[s for s, _, _ in summaries[name]]}")
+    for name in want - set(train) - {"train_avg_psnr_timed"}:
+        check([s for s, _, _ in summaries[name]] == [steps],
+              f"{tag} summaries: {name} not at step {steps} alone")
+    check(len(summaries["train_avg_psnr_timed"]) == steps,
+          f"{tag} summaries: train_avg_psnr_timed written "
+          f"{len(summaries['train_avg_psnr_timed'])} times")
+    import numpy as np
+    sizes = {}
+    for name, events in summaries.items():
+        for _, plugin, value in events:
+            if name.startswith("render_"):
+                width, height, pngs = value
+                check(plugin == "images" and len(pngs) == 1
+                      and pngs[0].startswith(b"\x89PNG\r\n\x1a\n"),
+                      f"{tag} summaries: {name} is no PNG image")
+                sizes[name[len("render_"):]] = (width, height)
+            elif name.endswith("_hist"):
+                check(plugin == "histograms" and value.shape == (30, 3)
+                      and np.isfinite(value).all() and value[:, 2].sum() == 1,
+                      f"{tag} summaries: {name} is no histogram of one step")
+            else:
+                check(plugin == "scalars" and value.shape == ()
+                      and math.isfinite(float(value)),
+                      f"{tag} summaries: {name} = {value}")
+    ms = SUMMARY_MS[save_dir]
+    print(f"summaries ({tag}): {len(summaries)} tags in tb_train, every "
+          f"value finite, record CRCs good; images {sizes}; host ms a print "
+          f"event {statistics.median(ms['train']):.3f} (median of "
+          f"{len(ms['train'])}), a render event (vis suite on the card, one "
+          f"copy, PNG writes) {', '.join(f'{t:.1f}' for t in ms['render'])}",
+          flush=True)
+    if ray_strips:
+        # vis_num_rays 16 rays of 3 levels, each level's strip repeated
+        # 2048 // 49 = 41 times, a blank row between rays, the last cut.
+        check(sizes["ray_colors"] == sizes["ray_weights"] == (2048, 1983),
+              f"{tag}: ray strips of {sizes['ray_colors']}")
 
 
 def png_shape(path: str) -> tuple:
@@ -1672,9 +1873,11 @@ def mip_phase(torch, tmp: str, scene: str, distractor: str,
     exp = lambda name: os.path.join(tmp, "exp", f"mip_{name}")
     # 14b: kubric_1024_base, fp32.
     base = gin_flags("kubric_1024_base", 8)
-    _, _, fp32 = mip_train(torch, base, scene, exp("base"),
-                           "Mip-NeRF 360 kubric_1024_base, fp32", 8,
-                           profile=True)
+    _, terms, fp32 = mip_train(torch, base, scene, exp("base"),
+                               "Mip-NeRF 360 kubric_1024_base, fp32", 8,
+                               profile=True)
+    check_summaries(exp("base"), "Mip-NeRF 360 kubric_1024_base", 8,
+                    terms["train"][-1], ray_strips=True)
     eval_phase(torch, base, scene, exp("base"), "Mip-NeRF 360 base", (),
                score=True)
     mip_micro_phase(torch, dev)
@@ -2094,6 +2297,113 @@ def llff_blender_phase(torch, tmp: str):
         f"GiB" for name, r in readings.items()), flush=True)
 
 
+# Phase 18: released-format snapshots of these shipped yamls at full width,
+# each at its config's last step (so eval and render both run at
+# train_frac 1.0), with the forward kernels its eval must launch.
+IMPORTS = (("kubric_nerfacto_base", ("hashgrid_fwd",)),
+           ("kubric_nerf_base", ()))
+
+
+def import_phase(torch, tmp: str, scene: str, dev) -> None:
+    """Phase 18: each of IMPORTS as a released torch snapshot from a seeded
+    generator (tools/released_snapshots.py), converted by
+    `nerf_hugs_torch.tools.convert_reference_checkpoint` on the card, then
+    the eval (1 image) and render (1 frame) drivers on its directory with
+    the config.yml it emitted; the converted checkpoint's rendering of
+    test image 0 equals, bit for bit, that of the model loaded straight
+    from the same flax tree through from_jax, and so do the eval's and
+    the render's PNGs."""
+    import numpy as np
+    import yaml
+    from nerf_hugs_torch.data import load_dataset
+    from nerf_hugs_torch.models import (construct_model, from_jax,
+                                        nerfacto_import, torch_compat)
+    from nerf_hugs_torch.tools import released_snapshots
+    from nerf_hugs_torch.tools.convert_reference_checkpoint import (
+        main as convert_main)
+    from nerf_hugs_torch.tools.hashgrid_inputs import shipped_yaml
+    from nerf_hugs_torch.train import checkpoints, driver
+    from nerf_hugs_torch.train.render_image import render_image
+    root = os.path.join(tmp, "import")
+    os.makedirs(root)
+    for seed, (name, expected) in enumerate(IMPORTS):
+        cfg = shipped_yaml(root, name, eval_dataset_limit=1)
+        config = driver.load_config(cfg, scene, root)
+        nerfacto = config.model_type == "nerfacto"
+        step = config.max_steps
+        t0 = time.time()
+        snapshot = (released_snapshots.nerfacto_snapshot if nerfacto else
+                    released_snapshots.vanilla_snapshot)(
+            construct_model(config, "cpu", torch.Generator().manual_seed(0)),
+            config, seed, step)
+        pth = os.path.join(root, f"{name}_{step}.pth")
+        torch.save(snapshot, pth)
+        made = time.time() - t0
+        out = os.path.join(root, name)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        convert_main(["--reference_checkpoint", pth, "--config", cfg,
+                      "--output_dir", out, "--device", dev])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        emitted = os.path.join(out, "config.yml")
+        with open(emitted) as f:
+            check(yaml.safe_load(f)["model"]["legacy_cumulative_deltas"]
+                  is True, f"{name}: config.yml lacks legacy_cumulative_"
+                           f"deltas")
+        print(f"import ({name}): a released-format snapshot of "
+              f"{os.path.getsize(pth) / 2 ** 20:.1f} MiB written in "
+              f"{made:.1f} s; converted on the card in {seconds:.2f} s, peak "
+              f"device memory {peak / 2 ** 30:.3f} GiB above what was "
+              f"allocated before", flush=True)
+        eval_phase(torch, emitted, scene, out, f"imported {name}", expected,
+                   score=False, summary=f"metrics_test_{step}.txt", images=1,
+                   ssim_min=-1.0)
+        render_dir, _, _ = render_phase(
+            torch, emitted, scene, out, f"imported {name}", expected,
+            f"test_preds_step_{step}", (0,),
+            {"render_num_jobs": 4, "render_job_id": 0})
+
+        config = driver.load_config(emitted, scene, out)
+        converted = construct_model(config, dev,
+                                    torch.Generator().manual_seed(1))
+        check(checkpoints.restore_params(out, converted) == step,
+              f"{name}: the converted checkpoint is not at step {step}")
+        sd = {k: v.numpy() for k, v in snapshot["model"].items()}
+        if nerfacto:
+            sd = {k: v for k, v in sd.items()
+                  if not k.endswith(nerfacto_import._IGNORED_SUFFIXES)}
+            state = from_jax.convert_nerfacto_params(
+                nerfacto_import.convert_nerfacto_state_dict(sd, config))
+        else:
+            state = from_jax.convert_vanilla_params(
+                torch_compat.convert_nerf_model_state_dict(sd, config))
+        direct = construct_model(config, dev,
+                                 torch.Generator().manual_seed(2))
+        direct.load_state_dict(state)
+        rays = load_dataset("test", scene, config,
+                            is_training=False).generate_ray_batch(0).rays
+        want, got = (render_image(m, rays, 1.0, config, dev)
+                     for m in (direct, converted))
+        check(sorted(want) == sorted(got) and all(
+            np.array_equal(want[k], got[k]) for k in want),
+              f"{name}: the converted model renders other values than the "
+              f"tree loaded straight")
+        pixels = (np.clip(np.nan_to_num(want["rgb"]), 0, 1) * 255).astype(
+            np.uint8)
+        for path in (os.path.join(out, "test_preds", "000_color.png"),
+                     os.path.join(render_dir, "color_000.png")):
+            check(np.array_equal(png_pixels(path), pixels),
+                  f"{name}: {path} is not the direct model's image")
+        print(f"import ({name}): test image 0 of the converted checkpoint "
+              f"equals the model loaded straight from the flax tree bit for "
+              f"bit ({sorted(want)}), and so do the eval's and the render's "
+              f"PNGs", flush=True)
+        del converted, direct
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
@@ -2149,10 +2459,12 @@ def main() -> None:
             torch, hashgrid, hashgrid_bwd, hanerf_cfg, distractor, dev,
             ("mask",))
         worst_2d = {k: max(v, captured_worst[k]) for k, v in worst_2d.items()}
-        launches, _ = train_phase(torch, dense_cfg, scene,
-                                  os.path.join(tmp, "exp", "dense"),
-                                  "Dense MLPs, kubric scene", DENSE)
+        launches, terms = train_phase(torch, dense_cfg, scene,
+                                      os.path.join(tmp, "exp", "dense"),
+                                      "Dense MLPs, kubric scene", DENSE)
         launches = launches["train"]
+        check_summaries(os.path.join(tmp, "exp", "dense"),
+                        "Dense MLPs, kubric", 8, terms["train"][-1])
         fused_cfg = base_yaml(tmp, fused=True)
         fused_dir = os.path.join(tmp, "exp", "fused")
         train_phase(torch, fused_cfg, tmp, fused_dir,
@@ -2192,6 +2504,7 @@ def main() -> None:
                       os.path.join(tmp, "exp", "dense"), fused_cfg, tmp,
                       fused_dir)
         llff_blender_phase(torch, tmp)
+        import_phase(torch, tmp, scene, dev)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

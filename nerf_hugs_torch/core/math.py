@@ -107,9 +107,10 @@ def sorted_interp(x, xp, fp):
     return fp_lo + frac * (fp_hi - fp_lo)
 
 
-def interp(x, xp, fp):
+def interp(x, xp, fp, fused: bool = False):
     """`jnp.interp` batched over leading dims: constant extrapolation,
-    zero-width intervals take the left value."""
+    zero-width intervals take the left value. With `fused`, fp0 + q * df
+    rounds once, as the fused multiply-add XLA emits on the CPU."""
     n = xp.shape[-1]
     i = torch.clamp(_bracket(xp, x), 1, n - 1)
     xp0, xp1 = torch.gather(xp, -1, i - 1), torch.gather(xp, -1, i)
@@ -117,7 +118,12 @@ def interp(x, xp, fp):
     dx = xp1 - xp0
     eps = float(np.spacing(np.finfo(np.float32).eps))
     dx0 = torch.abs(dx) <= eps
-    f = torch.where(dx0, fp0,
-                    fp0 + ((x - xp0) / torch.where(dx0, 1.0, dx)) * (fp1 - fp0))
+    q = (x - xp0) / torch.where(dx0, 1.0, dx)
+    if fused:
+        # The float32 product is exact in float64: one rounding at the end.
+        f = (fp0.double() + q.double() * (fp1 - fp0).double()).to(fp.dtype)
+    else:
+        f = fp0 + q * (fp1 - fp0)
+    f = torch.where(dx0, fp0, f)
     f = torch.where(x < xp[..., :1], fp[..., :1], f)
     return torch.where(x > xp[..., -1:], fp[..., -1:], f)

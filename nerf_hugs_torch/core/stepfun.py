@@ -171,3 +171,49 @@ def weighted_percentile(t, w, ps):
     cdf = integrate_weights(w)
     q = torch.tensor(ps, dtype=cdf.dtype, device=cdf.device) / 100
     return nh_math.interp(q.expand(cdf.shape[:-1] + (len(ps),)), cdf, t)
+
+
+def cumsum_blocked(v):
+    """Inclusive cumsum along the last axis, summed in the order XLA sums
+    jnp.cumsum on the CPU: one after another within blocks of 16, then the
+    blocks' totals, summed the same way, carried into the next blocks."""
+    n = v.shape[-1]
+    if n <= 16:
+        out = [v[..., 0]]
+        for i in range(1, n):
+            out.append(out[-1] + v[..., i])
+        return torch.stack(out, dim=-1)
+    num_blocks = -(-n // 16)
+    blocks = cumsum_blocked(torch.nn.functional.pad(
+        v, (0, num_blocks * 16 - n)).reshape(v.shape[:-1] + (num_blocks, 16)))
+    totals = cumsum_blocked(blocks[..., -1])
+    carry = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]],
+                      dim=-1)
+    return (blocks + carry[..., None]).reshape(
+        v.shape[:-1] + (num_blocks * 16,))[..., :n]
+
+
+def resample(t, tp, vp, use_avg=False, eps=_EPS):
+    """Resample the step function (tp, vp) onto the intervals t: its mass
+    in each interval, or with `use_avg` its width-weighted average. The
+    cumulative integral of vp, interpolated at t (clamped at the ends, as
+    jnp.interp) and differenced; leading dims broadcast.
+
+    The ray strips of utils/vis.py divide two such differences over
+    intervals of 1/2048, which turns one rounding of the integral into
+    1e-4 of the result. So the integral is summed as XLA sums it on the
+    CPU (cumsum_blocked) and the interpolation rounds once, as XLA's fused
+    multiply-add does: the strips match JAX's there bit for bit."""
+    if use_avg:
+        wp = tp[..., 1:] - tp[..., :-1]
+        numer = resample(t, tp, vp * wp)
+        denom = resample(t, tp, wp)
+        return numer / torch.clamp(denom, min=eps)
+    acc = torch.cat([torch.zeros_like(vp[..., :1]), cumsum_blocked(vp)],
+                    dim=-1)
+    batch = torch.broadcast_shapes(t.shape[:-1], tp.shape[:-1],
+                                   acc.shape[:-1])
+    acc_at_t = nh_math.interp(t.expand(batch + t.shape[-1:]).contiguous(),
+                              tp.expand(batch + tp.shape[-1:]).contiguous(),
+                              acc.expand(batch + acc.shape[-1:]), fused=True)
+    return acc_at_t[..., 1:] - acc_at_t[..., :-1]

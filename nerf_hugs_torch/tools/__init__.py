@@ -1,1 +1,3 @@
-"""Microbenchmarks of the port, run as `python -m nerf_hugs_torch.tools.X`."""
+"""The port's tools, run as `python -m nerf_hugs_torch.tools.X`:
+microbenchmarks, the scene and snapshot writers the checks use, and the
+released-checkpoint converter."""

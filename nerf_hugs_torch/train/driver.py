@@ -22,7 +22,10 @@ carried from step to step on the device, and the in-train eval, which
 reports PSNR and SSIM through the MetricHarness: a rotating window of
 eval_images_num test images for nerfacto, one rotating test image
 (`next(test_dataset)`, train.py:306-307) for Mip-NeRF 360. Tensorboard
-summaries wait (ROADMAP.md Queue 1 item 10b).
+summaries go to {checkpoint_dir}/tb_{stage} (train.py:192-196, 267-288,
+346-363; utils/summary.py writes what flax's writer writes): each print
+event the train scalars, the loss terms and histograms of the buffer,
+each in-train eval its metrics and the images of utils/vis.py's suite.
 Every printed line also lands in {save_dir}/run_log.log. It runs on the
 card unless --device cpu is given; without a card that is an error.
 """
@@ -43,8 +46,10 @@ from nerf_hugs_torch.models import backbone as model_backbone, construct_model
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
 from nerf_hugs_torch.train.render_image import render_image
+from nerf_hugs_torch.utils import vis
 from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
 from nerf_hugs_torch.utils.record import Recorder
+from nerf_hugs_torch.utils.summary import SummaryWriter
 
 
 def add_config_args(parser: argparse.ArgumentParser) -> None:
@@ -83,21 +88,77 @@ def eval_window_indices(event: int, dataset_size: int,
     return [(base + i) % dataset_size for i in range(n_eval)]
 
 
-def _eval_metrics(model, batches, train_frac, config, device,
-                  harness) -> dict:
+def _eval_metrics(model, batches, train_frac, config, device, harness):
     """Mean metrics (psnr, ssim) of the clipped renders over the test
     images of `batches` (fetched one at a time), against the GT composited
-    over the test background."""
+    over the test background; returns them with the last image's
+    rendering and batch."""
     per_image = []
     for batch in batches:
-        rgb = np.clip(render_image(model, batch.rays, train_frac, config,
-                                   device)["rgb"], 0, 1)
+        rendering = render_image(model, batch.rays, train_frac, config,
+                                 device)
         gt = nh_image.composite_alpha(
             np.asarray(batch.rgb, np.float32),
             nh_image.BACKGROUND_VALUES[config.test_background_color])
-        per_image.append(harness(rgb, gt))
-    return {k: float(np.mean([m[k] for m in per_image]))
-            for k in per_image[0]}
+        per_image.append(harness(np.clip(rendering["rgb"], 0, 1), gt))
+    metrics = {k: float(np.mean([m[k] for m in per_image]))
+               for k in per_image[0]}
+    return metrics, rendering, batch
+
+
+def read_stats(stats_buffer, thresholds=None) -> dict:
+    """The buffer's losses and PSNRs, the last step's loss terms and, for
+    RobustNeRF, the thresholds it hands on, in one copy to the host."""
+    terms = stats_buffer[-1]["losses"]
+    parts = {"loss": torch.stack([s["loss"] for s in stats_buffer]),
+             "psnr": torch.stack([s["psnr"] for s in stats_buffer]),
+             "terms": torch.stack([v.float() for v in terms.values()])}
+    if thresholds is not None:
+        parts["thresholds"] = thresholds.float().reshape(-1)
+    flat = torch.cat([v.float() for v in parts.values()]).cpu().numpy()
+    bounds = np.cumsum([0] + [len(v) for v in parts.values()])
+    host = {k: flat[a:b] for k, a, b in zip(parts, bounds, bounds[1:])}
+    host["terms"] = dict(zip(terms, host["terms"].tolist()))
+    return host
+
+
+def train_summaries(writer, step: int, host: dict, steps_per_sec: float,
+                    rays_per_sec: float, lr: float,
+                    total_time: float) -> None:
+    """A print event's summaries (train.py:267-288)."""
+    loss, psnr = float(np.mean(host["loss"])), float(np.mean(host["psnr"]))
+    writer.scalar("train_loss", loss, step)
+    writer.scalar("train_psnr", psnr, step)
+    writer.scalar("train_steps_per_sec", steps_per_sec, step)
+    writer.scalar("train_rays_per_sec", rays_per_sec, step)
+    writer.scalar("learning_rate", lr, step)
+    writer.histogram("train_loss_hist", host["loss"], step)
+    writer.histogram("train_psnr_hist", host["psnr"], step)
+    for name, value in host["terms"].items():
+        writer.scalar(f"train_losses/{name}", value, step)
+    # PSNR against wall time (train.py:210-213).
+    writer.scalar("train_avg_psnr_timed", psnr, int(total_time))
+
+
+def render_summaries(writer, step: int, metrics: dict, rendering: dict,
+                     rays, device) -> None:
+    """An in-train eval's summaries (train.py:346-363): its metrics, and
+    the visualization suite of the last window image's rendering, computed
+    on the device and copied to the host once, clipped to [0, 1]."""
+    for k, v in metrics.items():
+        writer.scalar(f"eval_{k}", v, step)
+    on_device = lambda a: torch.tensor(np.asarray(a), device=device)
+    suite = vis.visualize_suite(
+        {k: ([on_device(x) for x in v] if k.startswith("ray_")
+             else on_device(v)) for k, v in rendering.items()},
+        rays.map(on_device))
+    images = [torch.clamp(v, 0, 1) for v in suite.values()]
+    flat = torch.cat([v.reshape(-1) for v in images]).cpu().numpy()
+    bounds = np.cumsum([0] + [v.numel() for v in images])
+    for name, image, a, b in zip(suite, images, bounds, bounds[1:]):
+        arr = flat[a:b].reshape(image.shape)
+        writer.image(f"render_{name}", arr[..., None] if arr.ndim == 2
+                     else arr, step)
 
 
 def check_num_embeddings(config, dataset, stage: str = "train") -> None:
@@ -245,8 +306,12 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
     # them on the host would wait for every step.
     robust = config.transient_type == "robustnerf" and not is_finetune
     thresholds = step_lib.initial_inlier_thresholds(config, device)
+    # The run's root even in the finetune stage, as train.py:192-196.
+    writer = SummaryWriter(os.path.join(config.checkpoint_dir,
+                                        f"tb_{stage}"))
 
     stats_buffer = []
+    total_time = 0.0
     start = time.time()
     for step in range(init_step, num_steps + 1):
         batch = next(dataset).to(device)
@@ -263,23 +328,26 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
             thresholds = stats["robust_inlier_threshold"]
         stats_buffer.append(stats)
         if step == init_step or step % config.print_every == 0:
-            loss = float(torch.stack([s["loss"] for s in stats_buffer]).mean())
-            psnr = float(torch.stack([s["psnr"] for s in stats_buffer]).mean())
+            host = read_stats(stats_buffer, thresholds if robust else None)
             elapsed = time.time() - start
+            total_time += elapsed
             steps_per_sec = len(stats_buffer) / max(elapsed, 1e-9)
+            lr = scheduler.get_last_lr()[0]
             # The last step's loss terms (and the thresholds it hands the
-            # next step): the run log's stand-in for the train_losses/*
-            # summaries (ROADMAP.md Queue 1 item 10b).
-            terms = " ".join(f"{k}={float(v):.5f}" for k, v in
-                             stats_buffer[-1]["losses"].items())
+            # next step).
+            terms = " ".join(f"{k}={v:.5f}" for k, v in
+                             host["terms"].items())
             if robust:
                 terms += " inlier_threshold=" + ",".join(
-                    f"{float(t):.6g}" for t in thresholds)
+                    f"{t:.6g}" for t in host["thresholds"].tolist())
             recorder.print(
-                f"[{stage}] {step}/{num_steps}: loss={loss:.5f} "
-                f"psnr={psnr:.3f} lr={scheduler.get_last_lr()[0]:.2e} "
+                f"[{stage}] {step}/{num_steps}: "
+                f"loss={float(np.mean(host['loss'])):.5f} "
+                f"psnr={float(np.mean(host['psnr'])):.3f} lr={lr:.2e} "
                 f"{steps_per_sec:.2f} steps/s "
                 f"{batch_size * steps_per_sec:.0f} rays/s {terms}")
+            train_summaries(writer, step, host, steps_per_sec,
+                            batch_size * steps_per_sec, lr, total_time)
             stats_buffer = []
             start = time.time()
 
@@ -302,8 +370,11 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
                            for i in eval_window_indices(
                                event, test_dataset.size,
                                config.eval_images_num))
-            metrics = _eval_metrics(model, batches, train_frac, config,
-                                    device, harness)
+            metrics, rendering, test_batch = _eval_metrics(
+                model, batches, train_frac, config, device, harness)
             recorder.print(f"[{stage}] {step}: eval " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items()))
+            render_summaries(writer, step, metrics, rendering,
+                             test_batch.rays, device)
             start = time.time()
+    writer.close()
