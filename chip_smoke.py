@@ -210,6 +210,29 @@ Phases, each fatal on failure (exit code 1, no result line):
      the converted checkpoint equals, bit for bit, the rendering of the
      model loaded straight from the same flax tree through from_jax, and
      so do the eval's and the render's colour PNGs.
+  19. multi-process data parallelism (nerf_hugs_torch/parallel/mesh.py),
+     each rank a process of this script (`--rank ...`) started with
+     torchrun's environment and a timeout: (a) phase 5's small Dense model
+     as 2 gloo ranks on the one card (CUDA_VISIBLE_DEVICES=0, LOCAL_RANK 0
+     each), 3 steps on the two halves of 3 seeded global batches: both
+     ranks' parameters bit-equal, and the losses within phase 5's 1e-5
+     (relative) and the first step's averaged gradients within its 1e-4
+     of each leaf's largest entry of one process stepping the whole batches
+     on the card; (b) `python -m nerf_hugs_torch.train` as 2 gloo ranks
+     on kubric_nerfacto_base.yml at full width on phase 7's scene, 4 steps
+     (a correctness run: the 256 MiB field-table gradient crosses the host
+     every step), each rank's hash-grid forward and backward launched, one
+     checkpoint directory with one config.gin, one run_log.log and one
+     events file, the gradient all-reduce's synchronised host ms a step
+     and, on rank 0, the profiler's device ms under it; then the eval of 2
+     images as 2 ranks, its PSNR within 1e-3 dB of a one-process eval of
+     the same checkpoint; (c) the same 4 steps as a world of one over nccl
+     against two runs without a group: the first step's averaged
+     gradients (after the flat all-reduce's cat and split) within phase
+     5's 1e-4 of each leaf's largest entry of the first run's, leaf for
+     leaf, and 2 nccl ranks on one card refused with the port's message; (d) with two or
+     more cards, (a) over nccl on cards 0 and 1, else a line saying it was
+     not run.
 Each train run prints its steps/s over steps 2-8 and its peak device
 memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
@@ -2404,10 +2427,403 @@ def import_phase(torch, tmp: str, scene: str, dev) -> None:
         del converted, direct
 
 
+# Phase 19: ranks of this script (`python3 chip_smoke.py --rank ...`).
+MP_TIMEOUT_S = 420        # a rank that outlives it is killed
+MP_TOY_STEPS = 3
+MP_STEPS = 4              # 19b / 19c full-width train steps
+MP_PSNR_TOL = 1e-3        # dB, 19b's 2-rank eval against one process
+MP_GRAD_TOL = 1e-4        # 19c, of each leaf's max (phase 5's)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def launch_ranks(argv: list, world, local_ranks=None, visible=None,
+                 timeout: float = MP_TIMEOUT_S) -> list:
+    """`python3 argv...` as `world` ranks with torchrun's environment
+    (world None: one process without it), each rank on LOCAL_RANK
+    local_ranks[r] (default 0) and, with `visible`, CUDA_VISIBLE_DEVICES
+    `visible`; returns [(returncode, output)] in rank order. Every rank
+    still running at `timeout` is killed."""
+    port = free_port()
+    procs = []
+    for rank in range(world or 1):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        if world:
+            env.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                        "LOCAL_RANK": str((local_ranks or [0] * world)[rank]),
+                        "LOCAL_WORLD_SIZE": str(world),
+                        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+        if visible is not None:
+            env["CUDA_VISIBLE_DEVICES"] = visible
+        procs.append(subprocess.Popen(
+            [sys.executable] + argv, cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        deadline = time.time() + timeout
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.time(), 1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n(killed at timeout)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def check_ranks(results, tag: str) -> None:
+    for rank, (rc, out) in enumerate(results):
+        check(rc == 0, f"{tag}: rank {rank} exited with {rc}:\n{out[-4000:]}")
+
+
+def toy_steps(torch, config, state, batches, dev):
+    """MP_TOY_STEPS deterministic train steps from `state` on `batches`
+    (host Batches); returns (losses, the first step's gradients, the final
+    state) on the host."""
+    from nerf_hugs_torch.models import construct_model
+    from nerf_hugs_torch.parallel import mesh
+    from nerf_hugs_torch.train import step as step_lib
+    model = construct_model(config, dev, torch.Generator().manual_seed(0))
+    model.load_state_dict(state)
+    mesh.replicate(model)
+    opt, sched = step_lib.create_optimizer(config, model)
+    thresholds = step_lib.initial_inlier_thresholds(config, dev)
+    losses, grads = [], None
+    for batch in batches:
+        stats = step_lib.train_step(model, opt, sched, batch.to(dev), 0.3,
+                                    config, None, thresholds)
+        losses.append(float(stats["loss"]))
+        if grads is None:
+            grads = {k: p.grad.detach().cpu().clone()
+                     for k, p in model.named_parameters()}
+    return losses, grads, {k: v.detach().cpu() for k, v in
+                           model.state_dict().items()}
+
+
+def rank_toy(torch, work: str, backend: str) -> None:
+    """A rank of 19a / 19d: its half of each global batch of toy.pt."""
+    import dataclasses
+    from nerf_hugs_torch.parallel import mesh
+    from nerf_hugs_torch.utils.device import resolve_device
+    joined = mesh.maybe_initialize_distributed("cuda", backend)
+    dev = resolve_device("cuda")
+    saved = torch.load(os.path.join(work, "toy.pt"), weights_only=False)
+    rank, world = mesh.process_index(), mesh.process_count()
+
+    def half(batch):
+        per = len(batch.rgb) // world
+        take = lambda x: x[rank * per:(rank + 1) * per]
+        return dataclasses.replace(batch, rays=batch.rays.map(take),
+                                   rgb=take(batch.rgb))
+
+    reset_launches()
+    losses, grads, state = toy_steps(torch, saved["config"], saved["state"],
+                                     [half(b) for b in saved["batches"]],
+                                     dev)
+    torch.cuda.synchronize()
+    torch.save({"losses": losses, "grads": grads, "state": state,
+                "launches": read_launches(), "device": str(dev)},
+               os.path.join(work, f"toy_{backend}_rank{rank}.pt"))
+    mesh.shutdown(joined)
+
+
+def rank_driver(torch, kind: str, stem: str, options: set,
+                args: list) -> None:
+    """A rank of 19b / 19c: the train or eval driver with the launch
+    counters and, in train, the gradient all-reduce timed (synchronised
+    host ms a step) and, with "profile" in `options`, rank 0's profiler
+    device ms under it a step, and the run's device ms in copies and in
+    NCCL kernels; writes them to {stem}_{RANK}.json. With "grads", the
+    first step's averaged gradients go to {stem}_{RANK}_grads.pt."""
+    from nerf_hugs_torch.eval import main as eval_main
+    from nerf_hugs_torch.train import main as train_main
+    from nerf_hugs_torch.train import step as step_lib
+    reduce_ms = []
+    mean_gradients = step_lib.mean_gradients
+
+    def timed(params):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.profiler.record_function("mean_gradients"):
+            grads = mean_gradients(params)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        if "grads" in options and len(reduce_ms) == 1:
+            torch.save({k: g.cpu() for k, g in grads.items()
+                        if g is not None},
+                       f"{stem}_{os.environ.get('RANK', '0')}_grads.pt")
+        return grads
+
+    step_lib.mean_gradients = timed
+    reset_launches()
+    readings = {}
+    t0 = time.time()
+    if (kind == "train" and "profile" in options
+            and os.environ.get("RANK") == "0"):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            train_main(args)
+            torch.cuda.synchronize()
+        rows = {e.key: e for e in prof.key_averages()}
+        dev_us = lambda e: getattr(e, "device_time_total",
+                                   getattr(e, "cuda_time_total", 0.0))
+        reduce_row = rows.get("mean_gradients")
+        readings = {
+            "reduce_device_ms": (dev_us(reduce_row) / 1e3 / max(
+                reduce_row.count, 1)) if reduce_row else None,
+            "memcpy_device_ms_run": sum(dev_us(e) for k, e in rows.items()
+                                        if k.startswith("Memcpy")) / 1e3,
+            "nccl_device_ms_run": sum(dev_us(e) for k, e in rows.items()
+                                      if "nccl" in k.lower()) / 1e3}
+    else:
+        (train_main if kind == "train" else eval_main)(args)
+    torch.cuda.synchronize()
+    with open(f"{stem}_{os.environ.get('RANK', '0')}.json", "w") as f:
+        json.dump({"launches": read_launches(), "reduce_ms": reduce_ms,
+                   "wall_s": time.time() - t0, "profile": readings}, f)
+
+
+def rank_nccl_shared() -> None:
+    """A rank of 19c's refusal: nccl with every rank on one card."""
+    from nerf_hugs_torch.parallel import mesh
+    try:
+        mesh.maybe_initialize_distributed("cuda", "nccl", timeout_s=60)
+    except RuntimeError as e:
+        print(f"REFUSED: {e}", flush=True)
+        sys.exit(5)
+    print("NOT REFUSED", flush=True)
+
+
+def rank_main(argv: list) -> None:
+    """`chip_smoke.py --rank toy DIR BACKEND | driver train|eval STEM
+    OPTIONS ARGS... | nccl_shared`: one rank of phase 19 (OPTIONS: a
+    comma-separated subset of profile and grads, or -)."""
+    sys.path.insert(0, HERE)
+    import torch
+    from nerf_hugs_torch.utils.device import pin_fp32_precision
+    pin_fp32_precision()
+    if argv[0] == "toy":
+        rank_toy(torch, argv[1], argv[2])
+    elif argv[0] == "driver":
+        rank_driver(torch, argv[1], argv[2], set(argv[3].split(",")),
+                    argv[4:])
+    elif argv[0] == "nccl_shared":
+        rank_nccl_shared()
+    else:
+        fail(f"unknown rank mode {argv}")
+
+
+def leaf_rel(a: dict, b: dict) -> float:
+    """The largest |a - b| of a leaf over that leaf's largest |b|."""
+    return max(float((a[k].float() - b[k].float()).abs().max())
+               / max(float(b[k].float().abs().max()), 1e-30) for k in b)
+
+
+def mp_toy_phase(torch, tmp: str, dev, backend: str, local_ranks,
+                 visible) -> None:
+    """19a (gloo, both ranks on card 0) and 19d (nccl, cards 0 and 1)."""
+    import yaml
+    from nerf_hugs_torch.data import load_dataset
+    from nerf_hugs_torch.models import construct_model
+    from nerf_hugs_torch.train import driver
+    work = os.path.join(tmp, "mp_toy")
+    if not os.path.exists(os.path.join(work, "toy.pt")):
+        os.makedirs(work, exist_ok=True)
+        path = os.path.join(work, "small.yml")
+        with open(path, "w") as f:
+            f.write(SMALL_YAML)
+        config = driver.load_config(path, work, os.path.join(work, "ck"))
+        dataset = load_dataset("train", work, config, is_training=True)
+        batches = [next(dataset) for _ in range(MP_TOY_STEPS)]
+        state = construct_model(config, "cpu",
+                                torch.Generator().manual_seed(0)).state_dict()
+        torch.save({"config": config, "state": state, "batches": batches},
+                   os.path.join(work, "toy.pt"))
+    saved = torch.load(os.path.join(work, "toy.pt"), weights_only=False)
+    t0 = time.time()
+    results = launch_ranks([__file__, "--rank", "toy", work, backend], 2,
+                           local_ranks, visible)
+    wall = time.time() - t0
+    check_ranks(results, f"toy ranks over {backend}")
+    ranks = [torch.load(os.path.join(work, f"toy_{backend}_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    one = toy_steps(torch, saved["config"], saved["state"],
+                    saved["batches"], dev)
+    equal = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+                for k in ranks[0]["state"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]["losses"], one[0]))
+    grad_rel = leaf_rel(ranks[0]["grads"], one[1])
+    param_rel = leaf_rel(ranks[0]["state"], one[2])
+    print(f"multi-process toy ({backend}, 2 ranks on "
+          f"{[r['device'] for r in ranks]}, CUDA_VISIBLE_DEVICES={visible}): "
+          f"{MP_TOY_STEPS} steps in {wall:.1f} s with start-up; ranks' "
+          f"parameters bit-equal {equal}; losses {ranks[0]['losses']} vs one "
+          f"process {one[0]} (worst rel {loss_rel:.2e}); first-step "
+          f"gradient worst {grad_rel:.2e} of the leaf's max; parameters "
+          f"after {MP_TOY_STEPS} steps worst {param_rel:.2e} of the leaf's "
+          f"max; launches per rank {[r['launches'] for r in ranks]}",
+          flush=True)
+    check(equal, f"the {backend} ranks' parameters differ")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          f"the {backend} ranks' losses differ")
+    check(loss_rel <= 1e-5, f"2-rank losses differ from one process "
+                            f"({backend})")
+    check(grad_rel <= 1e-4, f"2-rank gradients differ from one process "
+                            f"({backend})")
+    check(all(r["launches"][k] > 0 for r in ranks for k in DENSE),
+          f"a toy rank did not launch the hash-grid kernels: "
+          f"{[r['launches'] for r in ranks]}")
+
+
+def mp_driver(kind: str, cfg: str, data_dir: str, save_dir: str, tag: str,
+              world, backend=None, local_ranks=None, visible=None,
+              options: str = "-") -> list:
+    """The train or eval driver as `world` ranks (None: one process
+    without a group) through rank_driver with `options`; returns each
+    rank's (output, record)."""
+    stem = os.path.join(os.path.dirname(save_dir), f"{tag}_{kind}")
+    extra = ["--dist_backend", backend] if backend else []
+    outs = launch_ranks([__file__, "--rank", "driver", kind, stem, options]
+                        + config_args(cfg, data_dir, save_dir) + extra,
+                        world, local_ranks, visible)
+    check_ranks(outs, f"{tag} {kind}")
+    records = []
+    for rank, (_, out) in enumerate(outs):
+        with open(f"{stem}_{rank}.json") as f:
+            records.append((out, json.load(f)))
+    return records
+
+
+def metrics_psnr(save_dir: str) -> float:
+    with open(os.path.join(save_dir, f"metrics_test_{MP_STEPS}.txt")) as f:
+        return float(dict(line.split() for line in f)["psnr"])
+
+
+def mp_phase(torch, tmp: str, scene: str, dev) -> None:
+    """Phase 19 (see the module's docstring)."""
+    from nerf_hugs_torch.eval import main as eval_main
+    from nerf_hugs_torch.tools.hashgrid_inputs import base_yaml
+    mp_toy_phase(torch, tmp, dev, "gloo", None, "0")
+
+    # 19b: the drivers at full width as 2 gloo ranks on the one card.
+    work = os.path.join(tmp, "mp")
+    os.makedirs(work, exist_ok=True)
+    cfg = base_yaml(work, fused=False, steps=MP_STEPS, scene="kubric")
+    save2 = os.path.join(work, "two")
+    t0 = time.time()
+    train = mp_driver("train", cfg, scene, save2, "two", 2, "gloo",
+                      visible="0", options="profile")
+    wall = time.time() - t0
+    (out0, rec0), (out1, rec1) = train
+    steps = stage_lines(out0, "train")
+    check([s[0] for s in steps] == list(range(1, MP_STEPS + 1))
+          and not stage_lines(out1, "train"),
+          f"2-rank train print lines: rank 0 {steps}, rank 1 "
+          f"{stage_lines(out1, 'train')}")
+    check(all(r["launches"][k] > 0 for _, r in train for k in DENSE),
+          f"a train rank did not launch the hash-grid kernels: "
+          f"{[r['launches'] for _, r in train]}")
+    listing = sorted(os.listdir(save2))
+    events = os.listdir(os.path.join(save2, "tb_train"))
+    with open(os.path.join(save2, "run_log.log")) as f:
+        log = f.read()
+    check(listing == sorted([f"checkpoint_{MP_STEPS}.pt", "config.gin",
+                             "model_compat.json", "run_log.log",
+                             "tb_train"])
+          and len(events) == 1 and log.count("Number of parameters") == 1,
+          f"2-rank train wrote {listing}, events {events}")
+    rate = (len(steps) - 1) / sum(1 / s[2] for s in steps[1:])
+    reduce_ms = [statistics.median(r["reduce_ms"][1:]) for _, r in train]
+    print(f"multi-process train (kubric_nerfacto_base, 2 gloo ranks on one "
+          f"card, a correctness run): {MP_STEPS} steps in {wall:.1f} s with "
+          f"start-up; steps/s after the first {rate:.3f}; losses "
+          f"{[round(s[1], 5) for s in steps]}; gradient all-reduce "
+          f"(synchronised host ms a step, median of steps 2-{MP_STEPS}) "
+          f"{reduce_ms}; rank 0 profile {rec0['profile']}; launches per rank "
+          f"{[r['launches'] for _, r in train]}", flush=True)
+
+    evals = mp_driver("eval", cfg, scene, save2, "two", 2, "gloo",
+                      visible="0")
+    check(all(r["launches"]["hashgrid_fwd"] > 0 for _, r in evals),
+          f"an eval rank did not launch the hash-grid forward: "
+          f"{[r['launches'] for _, r in evals]}")
+    check("mean: psnr=" in evals[0][0] and "mean: psnr=" not in evals[1][0],
+          "the 2-rank eval's scores are not rank 0's alone")
+    psnr_two = metrics_psnr(save2)
+    eval_main(config_args(cfg, scene, save2))
+    psnr_one = metrics_psnr(save2)
+    print(f"multi-process eval (2 gloo ranks, 2 images): psnr {psnr_two!r} "
+          f"vs one process {psnr_one!r}; launches per rank "
+          f"{[r['launches'] for _, r in evals]}", flush=True)
+    check(abs(psnr_two - psnr_one) <= MP_PSNR_TOL,
+          "the 2-rank eval's PSNR differs from one process's")
+
+    # 19c: a world of one over nccl against two runs without a group, held
+    # by the first step's averaged gradients (the parameters after Adam's
+    # steps cannot tell a misplaced gradient from noise: every entry moves
+    # by about the learning rate whatever its gradient).
+    runs = {}
+    for name, world, backend, options in (
+            ("alone_a", None, None, "grads"), ("alone_b", None, None, "grads"),
+            ("nccl1", 1, "nccl", "profile,grads")):
+        out = mp_driver("train", cfg, scene, os.path.join(work, name), name,
+                        world, backend, options=options)
+        grads = torch.load(os.path.join(work, f"{name}_train_0_grads.pt"),
+                           weights_only=True)
+        runs[name] = (out[0], grads, stage_lines(out[0][0], "train"))
+    nccl = runs["nccl1"][0]
+    spread = leaf_rel(runs["alone_b"][1], runs["alone_a"][1])
+    diff = leaf_rel(runs["nccl1"][1], runs["alone_a"][1])
+    same_leaves = sorted(runs["nccl1"][1]) == sorted(runs["alone_a"][1])
+    losses = {name: [s[1] for s in r[2]] for name, r in runs.items()}
+    print(f"multi-process world of one over nccl: first-step averaged "
+          f"gradients worst {diff:.3e} of the leaf's max against a run "
+          f"without a group, two runs without a group {spread:.3e}; losses "
+          f"{losses}; gradient all-reduce "
+          f"{statistics.median(nccl[1]['reduce_ms'][1:]):.3f} ms a step "
+          f"(synchronised host clock); profile {nccl[1]['profile']}; "
+          f"launches {nccl[1]['launches']}", flush=True)
+    check(same_leaves and diff <= MP_GRAD_TOL,
+          "the nccl world of one's averaged gradients differ from a run "
+          "without a group")
+    shared = launch_ranks([__file__, "--rank", "nccl_shared"], 2,
+                          visible="0", timeout=120)
+    check(all(rc == 5 and "takes one rank per card" in out
+              for rc, out in shared),
+          f"2 nccl ranks on one card were not refused: {shared}")
+    print("multi-process: 2 nccl ranks on one card refused: " + re.search(
+        r"REFUSED: .*", shared[0][1]).group(0), flush=True)
+
+    # 19d: nccl over two cards.
+    if torch.cuda.device_count() >= 2:
+        mp_toy_phase(torch, tmp, dev, "nccl", [0, 1], None)
+    else:
+        print(f"multi-process 19d (2 nccl ranks on 2 cards): not run, "
+              f"{torch.cuda.device_count()} card", flush=True)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
              "checkout of the repository")
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+        return
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
@@ -2505,6 +2921,7 @@ def main() -> None:
                       fused_dir)
         llff_blender_phase(torch, tmp)
         import_phase(torch, tmp, scene, dev)
+        mp_phase(torch, tmp, scene, dev)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

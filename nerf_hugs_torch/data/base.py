@@ -1,8 +1,12 @@
 """Dataset base: host-side numpy ray-batch producer with a prefetch thread.
 
-Twin of nerf_hugs_tpu/data/base.py for one process: a daemon producer
-thread fills a queue.Queue(3) with Batches of numpy arrays; the train loop
-moves each batch to the device. Training batches are random dilated
+Twin of nerf_hugs_tpu/data/base.py: a daemon producer thread fills a
+queue.Queue(3) with Batches of numpy arrays; the train loop moves each
+batch to the device. Under a process group each rank draws its own share
+of the global batch: batch_size and image_num_per_batch are divided by the
+world size, and the sampler is seeded with the rank, as JAX divides them
+by the process count and seeds with the process index (data/base.py:54-65),
+so rank r draws what JAX host r draws. Training batches are random dilated
 patches, gathered by the native threaded sampler (the port's copy of
 native/raysampler.cc, nerf_hugs_torch/native/) when g++ can build it, else
 by numpy. With sample_from_half_image (the finetune stage on the test
@@ -27,6 +31,7 @@ from torch.nn import functional as F
 
 from nerf_hugs_torch.cameras import camera_utils
 from nerf_hugs_torch.core import rayops
+from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils import structs
 
@@ -48,17 +53,19 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         self._queue = queue.Queue(3)
         self.daemon = True
         self._patch_size = max(patch_size, 1)
-        self._batch_size = batch_size
-        self._image_num_per_batch = max(1, image_num_per_batch)
+        world = mesh.process_count()
+        self._batch_size = batch_size // world
+        self._image_num_per_batch = max(1, image_num_per_batch // world)
         self._patch_dilation = patch_dilation
-        if self._image_num_per_batch * self._patch_size ** 2 > batch_size:
+        if (self._image_num_per_batch * self._patch_size ** 2
+                > self._batch_size):
             raise ValueError(
                 f"image_num_per_batch={self._image_num_per_batch} * "
-                f"patch_size={self._patch_size}^2 exceeds batch size "
-                f"{batch_size}")
+                f"patch_size={self._patch_size}^2 exceeds per-process batch "
+                f"size {self._batch_size}")
         self._test_camera_idx = 0
-        self._rng = np.random.default_rng(
-            np.random.SeedSequence([config.seed, 0, int(is_training)]))
+        self._rng = np.random.default_rng(np.random.SeedSequence(
+            [config.seed, mesh.process_index(), int(is_training)]))
         self.split = structs.DataSplit(split)
         self.is_training = is_training
         self.sample_from_half_image = sample_from_half_image

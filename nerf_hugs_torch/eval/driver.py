@@ -24,6 +24,11 @@ run will write. With eval_save_ray_data, `{name}_rays.npz` holds every
 level's ray bags (`ray_sdist_0`, ...; Mip-NeRF 360 renders them, nerfacto
 none), as eval.py:196-203 writes them. It runs on the card unless
 --device cpu is given; without a card that is an error.
+
+Run as N processes (torchrun, --dist_backend as the train driver's), rank
+0 picks the checkpoint and broadcasts its pick on every pass of the
+polling loop (eval.py:95-113), every rank renders its share of each
+image (train/render_image.py), and rank 0 alone scores and writes.
 """
 
 from __future__ import annotations
@@ -38,12 +43,13 @@ import torch
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models import construct_model
+from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.train import checkpoints
-from nerf_hugs_torch.train.driver import (add_config_args,
+from nerf_hugs_torch.train.driver import (add_config_args, init_device,
                                           load_config_from_args, preflight)
 from nerf_hugs_torch.train.render_image import render_image
 from nerf_hugs_torch.utils import io as nh_io
-from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
+from nerf_hugs_torch.utils.device import pin_fp32_precision
 from nerf_hugs_torch.utils.record import Recorder
 
 
@@ -110,7 +116,14 @@ def _save_outputs(out_dir, name, rgb, gt, rgb_cc, rendering, metrics,
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, joined = init_device(args)
+    try:
+        evaluate(args, device)
+    finally:
+        mesh.shutdown(joined)
+
+
+def evaluate(args, device) -> None:
     config = load_config_from_args(args)
     if args.eval_data:
         config.eval_data = args.eval_data
@@ -122,13 +135,16 @@ def main(argv=None):
     dataset = load_dataset(config.eval_data, config.data_dir, config,
                            is_training=False)
     harness = nh_image.MetricHarness(device=device)
-    recorder = Recorder(config.checkpoint_dir)
+    lead = mesh.process_index() == 0
+    recorder = Recorder(config.checkpoint_dir, enable_file=lead)
     out_dir = os.path.join(config.checkpoint_dir, f"{config.eval_data}_preds")
-    if config.eval_save_output:
+    if config.eval_save_output and lead:
         os.makedirs(out_dir, exist_ok=True)
 
     last_step = None
     while True:
+        # Rank 0's pick on every rank, on every pass: the broadcast is
+        # also the polling loop's keep-alive.
         use_ft, step = checkpoints.pick_eval_checkpoint(config.checkpoint_dir)
         ckpt_dir = (os.path.join(config.checkpoint_dir, "finetune") if use_ft
                     else config.checkpoint_dir)
@@ -168,6 +184,8 @@ def main(argv=None):
             t0 = time.time()
             rendering = render_image(model, batch.rays, train_frac, config,
                                      device)
+            if not lead:
+                continue
             recorder.print(f"image {idx}/{num_eval} rendered in "
                            f"{time.time() - t0:.2f}s")
             rgb = np.clip(np.nan_to_num(rendering["rgb"]), 0, 1)
@@ -192,7 +210,7 @@ def main(argv=None):
                 _save_outputs(out_dir, name, rgb, gt, rgb_cc, rendering,
                               metrics, args.only_pred_gt)
 
-        if all_metrics:
+        if all_metrics and lead:
             mean = {k: float(np.mean([m[k] for m in all_metrics]))
                     for k in all_metrics[0]}
             recorder.print("mean: " + " ".join(

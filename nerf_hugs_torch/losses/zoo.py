@@ -4,6 +4,13 @@ Twin of nerf_hugs_tpu/losses/zoo.py (MipNeRF360/internal/train_utils.py:
 72-248): the data loss (base and withmask), RobustNeRF's patch-wise inlier
 mask with its carried threshold, NeRF-W's uncertainty-weighted loss,
 HA-NeRF's implicit-mask loss, and the interlevel and distortion losses.
+
+Under a process group each rank holds its share of JAX's global batch, and
+the train step averages the ranks' gradients and stats. A loss that is a
+mean over the rays needs nothing more; a weighted one (the data loss and
+RobustNeRF's) divides by the global batch's weight over the world size
+(_denominator), so that the mean over ranks is JAX's weighted mean, and
+RobustNeRF's next threshold is the quantile of every rank's pixel errors.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 from torch.nn import functional as F
 
 from nerf_hugs_torch.core import stepfun
+from nerf_hugs_torch.parallel import mesh
 
 
 def _per_level_data_loss(resid_sq, config):
@@ -32,6 +40,15 @@ def _combine_levels(data_losses: List[torch.Tensor], config):
     if len(data_losses) > 1:
         data = data + config.data_coarse_loss_mult * sum(data_losses[:-1])
     return data
+
+
+def _denominator(lossmult: torch.Tensor) -> torch.Tensor:
+    """max(sum of lossmult over the global batch, eps) / world size: each
+    rank's weighted sum over it has JAX's weighted mean as its mean over
+    the ranks. One process: max(lossmult.sum(), eps)."""
+    total = mesh.all_sum(lossmult.sum().detach())
+    return (torch.clamp(total, min=torch.finfo(lossmult.dtype).eps)
+            / mesh.process_count())
 
 
 def target_rgb(batch, rendering):
@@ -60,8 +77,7 @@ def compute_data_loss(batch, rays, renderings: List[dict], config,
                 lossmult = torch.ones_like(lossmult)
         lossmult = lossmult.expand(batch.rgb[..., :3].shape)
         resid_sq = (rendering["rgb"] - target_rgb(batch, rendering)) ** 2
-        denom = torch.clamp(lossmult.sum(),
-                            min=torch.finfo(lossmult.dtype).eps)
+        denom = _denominator(lossmult)
         mses.append((lossmult * resid_sq).sum() / denom)
         data_loss = _per_level_data_loss(resid_sq, config)
         data_losses.append((lossmult * data_loss).sum() / denom)
@@ -97,8 +113,9 @@ def robustnerf_mask(errors: torch.Tensor, inlier_threshold, config):
     f x f neighbourhood passes (a); (c) it lies in the centred inner patch
     and more than q_p of its patch passes (a). Returns (mask, stats);
     stats['inlier_threshold'] is the next step's threshold, the
-    robustnerf_inlier_quantile of this step's pixel errors (linear
-    interpolation, as jnp.quantile)."""
+    robustnerf_inlier_quantile of this step's pixel errors over every
+    rank (linear interpolation, as jnp.quantile over JAX's global batch).
+    The masks stay per rank: each rank's batch holds whole patches."""
     if config.robustnerf_inner_patch_size > config.patch_size:
         raise ValueError("robustnerf_inner_patch_size must be <= patch_size")
     dtype = errors.dtype
@@ -114,7 +131,8 @@ def robustnerf_mask(errors: torch.Tensor, inlier_threshold, config):
     mask = ((inlier > 0) | neighbor_ok | patch_ok).to(dtype)
     stats = {
         "inlier_threshold": torch.quantile(
-            pixel_err.reshape(-1), config.robustnerf_inlier_quantile),
+            mesh.gather_rows(pixel_err.reshape(-1)),
+            config.robustnerf_inlier_quantile),
         "is_inlier_loss": inlier.mean(),
         "has_inlier_neighbors": neighbor_ok.to(dtype).mean(),
         "is_inlier_patch": patch_ok.to(dtype).mean(),
@@ -143,8 +161,7 @@ def compute_robustnerf_loss(batch, renderings: List[dict],
             robust.setdefault(f"robust_{key}", []).append(val)
         lossmult = mask.reshape(resid_sq.shape[:-1] + (1,)).expand(
             data_loss.shape)
-        denom = torch.clamp(lossmult.sum(),
-                            min=torch.finfo(lossmult.dtype).eps)
+        denom = _denominator(lossmult)
         mses.append((lossmult * resid_sq).sum() / denom)
         data_losses.append((lossmult * data_loss).sum() / denom)
     stats = {k: torch.stack(v) for k, v in robust.items()}

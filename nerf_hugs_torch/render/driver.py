@@ -27,6 +27,12 @@ divergence from render.py: the model-compat check reads the directory the
 weights are restored from (render.py:128 reads checkpoint_dir even when it
 restores finetune/). It runs on the card unless --device cpu is given;
 without a card that is an error.
+
+Run as N processes (torchrun, --dist_backend as the train driver's), every
+rank renders its share of each frame (train/render_image.py), rank 0
+decides which frames to skip and alone writes the frames and encodes the
+videos (render.py:171, 189); render_num_jobs shards the frames over jobs
+of N ranks each.
 """
 
 from __future__ import annotations
@@ -43,12 +49,13 @@ import torch
 
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.models import construct_model
+from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.train import checkpoints
-from nerf_hugs_torch.train.driver import (add_config_args,
+from nerf_hugs_torch.train.driver import (add_config_args, init_device,
                                           load_config_from_args, preflight)
 from nerf_hugs_torch.train.render_image import render_image
 from nerf_hugs_torch.utils import io as nh_io
-from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
+from nerf_hugs_torch.utils.device import pin_fp32_precision
 
 _CLAIM = ".videos_claimed"
 
@@ -136,7 +143,7 @@ def restore(config, model) -> tuple:
     max_steps."""
     ft_dir = os.path.join(config.checkpoint_dir, "finetune")
     use_ft = (config.finetune_enable
-              and checkpoints.latest_step(ft_dir) is not None)
+              and checkpoints.agreed_latest_step(ft_dir) is not None)
     ckpt_dir = ft_dir if use_ft else config.checkpoint_dir
     checkpoints.check_model_compat(ckpt_dir, config)
     step = checkpoints.restore_params(ckpt_dir, model)
@@ -147,7 +154,14 @@ def restore(config, model) -> tuple:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, joined = init_device(args)
+    try:
+        render(args, device)
+    finally:
+        mesh.shutdown(joined)
+
+
+def render(args, device) -> None:
     config = load_config_from_args(args)
     preflight(config)
     pin_fp32_precision()
@@ -164,7 +178,9 @@ def main(argv=None):
     base_dir = config.render_dir or os.path.join(config.checkpoint_dir,
                                                  "render")
     out_dir = os.path.join(base_dir, out_name)
-    os.makedirs(out_dir, exist_ok=True)
+    lead = mesh.process_index() == 0
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
     path_fn = lambda x: os.path.join(out_dir, x)
     zpad = max(3, len(str(dataset.size - 1)))
 
@@ -178,8 +194,11 @@ def main(argv=None):
         if idx % jobs != config.render_job_id:
             continue
         idx_str = f"{idx:0{zpad}d}"
-        if (os.path.exists(path_fn(f"color_{idx_str}.png")) and
-                os.path.exists(path_fn(f"color_{idx + jobs:0{zpad}d}.png"))):
+        # Rank 0's view of the files decides for every rank.
+        (done,) = mesh.broadcast_ints([int(
+            lead and os.path.exists(path_fn(f"color_{idx_str}.png"))
+            and os.path.exists(path_fn(f"color_{idx + jobs:0{zpad}d}.png")))])
+        if done:
             print(f"Image {idx}/{dataset.size} already exists, skipping")
             continue
         print(f"Evaluating image {idx + 1}/{dataset.size}")
@@ -187,6 +206,8 @@ def main(argv=None):
         rays = dataset.generate_ray_batch(idx).rays
         rendering = render_image(model, rays, 1.0, config, device)
         print(f"Rendered in {time.time() - t0:0.3f}s")
+        if not lead:
+            continue
         save_fn(nh_io.save_img_u8, rendering["rgb"],
                 path_fn(f"color_{idx_str}.png"))
         for key in ["acc", "distance_mean", "distance_median"]:
@@ -200,6 +221,9 @@ def main(argv=None):
 
     # Whichever job finishes last finds the full frame set and encodes the
     # videos (render.py:198-203).
+    if not lead:
+        print("render complete")
+        return
     if jobs > 1:
         time.sleep(1)  # peer jobs' saves in flight
     num_files = len([n for n in os.listdir(out_dir)

@@ -5,7 +5,8 @@ train step of several checkouts.
     python -m nerf_hugs_torch.tools.bench_hashgrid kernels \\
         [--baseline OLD_HASHGRID_CU] [--captured] [--out JSON]
     python -m nerf_hugs_torch.tools.bench_hashgrid train ROOT [ROOT ...] \\
-        [--steps 48] [--runs RUN [RUN ...]] [--profile] [--out JSON]
+        [--steps 48] [--first 9] [--runs RUN [RUN ...]] [--profile] \\
+        [--out JSON]
     python -m nerf_hugs_torch.tools.bench_hashgrid wrappers ROOT [ROOT ...] \\
         [--out JSON]
     python -m nerf_hugs_torch.tools.bench_hashgrid host [--reps 2000] \\
@@ -57,8 +58,8 @@ mask grid on its 16384 pixel centres.
 
 `train` runs `python -m nerf_hugs_torch.train` from each checkout ROOT in
 the order given (e.g. parent, change, change, parent), once per RUN in the
-order given, and reports the steps/s over steps 9 to the last from the
-driver's print lines. A RUN is `base-synthetic` (the default: Dense
+order given, and reports the steps/s over steps --first (default 9) to the
+last from the driver's print lines. A RUN is `base-synthetic` (the default: Dense
 kubric_nerfacto_base on the procedural scene of hashgrid_inputs.base_yaml),
 `base-kubric` (the same on the scene of hashgrid_inputs.write_kubric_scene,
 through the kubric loader), `hanerf-distractor` and
@@ -592,14 +593,14 @@ def train_main(args) -> dict:
         for root in args.roots:
             for run in args.runs:
                 rates = train_rates(os.path.abspath(root), *inputs[run], tmp,
-                                    i, 9)
+                                    i, args.first)
                 i += 1
                 for stage, rate in rates.items():
                     report["rates"].append({"root": root, "run": run,
                                             "stage": stage,
                                             "steps_per_s": rate})
                     print(f"{stage} {root} {run}: {rate:.3f} steps/s over "
-                          f"steps 9-{args.steps}", flush=True)
+                          f"steps {args.first}-{args.steps}", flush=True)
                 stages[run] = list(rates)
         if args.profile:
             for root in dict.fromkeys(args.roots):
@@ -631,6 +632,8 @@ def main(argv=None) -> dict:
     t = sub.add_parser("train")
     t.add_argument("roots", nargs="+", help="checkouts to train from")
     t.add_argument("--steps", type=int, default=48)
+    t.add_argument("--first", type=int, default=9,
+                   help="the first step counted in the rate")
     t.add_argument("--runs", nargs="+", choices=RUNS_TRAIN,
                    default=["base-synthetic"],
                    help="configs and scenes to train, in this order")

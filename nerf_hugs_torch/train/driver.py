@@ -28,6 +28,15 @@ event the train scalars, the loss terms and histograms of the buffer,
 each in-train eval its metrics and the images of utils/vis.py's suite.
 Every printed line also lands in {save_dir}/run_log.log. It runs on the
 card unless --device cpu is given; without a card that is an error.
+
+Run as N processes (`torchrun --nproc_per_node N -m
+nerf_hugs_torch.train ...`), it trains one model on N times the per-rank
+batch, as train.py does over a global mesh of N hosts: the ranks join the
+launcher's process group (--dist_backend, nccl on the card and gloo on the
+CPU by default) before any device call, start from rank 0's parameters,
+draw their own shares of each global batch and average their gradients
+(parallel/mesh.py). Rank 0 alone writes config.gin, run_log.log, tb_*,
+the checkpoints and the print and eval lines.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from nerf_hugs_torch.configs import gin_parser, yaml_loader
 from nerf_hugs_torch.data import check_loader, load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models import backbone as model_backbone, construct_model
+from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
 from nerf_hugs_torch.train.render_image import render_image
@@ -67,6 +77,17 @@ def add_config_args(parser: argparse.ArgumentParser) -> None:
                         help="checkpoint dir (nerfacto name)")
     parser.add_argument("--logtostderr", action="store_true")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--dist_backend", default=None, choices=mesh.BACKENDS,
+                        help="process-group backend when a launcher such as "
+                             "torchrun starts N ranks (default: nccl on "
+                             "cuda, gloo on cpu)")
+
+
+def init_device(args):
+    """Join the launcher's process group, if any, before any CUDA call;
+    returns (device, whether this call joined it)."""
+    joined = mesh.maybe_initialize_distributed(args.device, args.dist_backend)
+    return resolve_device(args.device), joined
 
 
 def parse_args(argv=None):
@@ -233,21 +254,38 @@ def preflight(config) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device, joined = init_device(args)
+    try:
+        train(args, device)
+    finally:
+        mesh.shutdown(joined)
+
+
+def train(args, device) -> None:
     config = load_config_from_args(args)
     preflight(config)
     pin_fp32_precision()
+    world = mesh.process_count()
+    if config.batch_size % world:
+        raise ValueError(f"batch_size {config.batch_size} must divide "
+                         f"evenly by {world} processes")
 
-    os.makedirs(config.checkpoint_dir, exist_ok=True)
-    with open(os.path.join(config.checkpoint_dir, "config.gin"), "w") as f:
-        f.write(gin_parser.config_str(config))
-    recorder = Recorder(config.checkpoint_dir)
+    if mesh.process_index() == 0:
+        os.makedirs(config.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(config.checkpoint_dir, "config.gin"),
+                  "w") as f:
+            f.write(gin_parser.config_str(config))
+    recorder = Recorder(config.checkpoint_dir,
+                        enable_file=mesh.process_index() == 0)
 
     test_dataset = load_dataset("test", config.data_dir, config,
                                 is_training=False)
     harness = nh_image.MetricHarness(device=device)
     model = construct_model(config, device,
                             torch.Generator().manual_seed(config.seed))
+    # Every rank starts from rank 0's parameters (train.py's ranks would
+    # each draw their own: ROADMAP, known faults in the reference).
+    mesh.replicate(model)
     num_params = sum(p.numel() for p in model.parameters())
     recorder.print(f"Number of parameters being optimized: {num_params}")
     stages = ["train"] + (["finetune"] if config.finetune_enable else [])
@@ -301,20 +339,26 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
     init_step = checkpoints.restore_checkpoint(ckpt_dir, model, optimizer,
                                                scheduler) + 1
     rng = torch.Generator(device=device).manual_seed(
-        config.seed + (2 if is_finetune else 1))
+        mesh.fold_in(config.seed + (2 if is_finetune else 1)))
     # RobustNeRF's thresholds stay on the device from step to step: reading
     # them on the host would wait for every step.
     robust = config.transient_type == "robustnerf" and not is_finetune
     thresholds = step_lib.initial_inlier_thresholds(config, device)
     # The run's root even in the finetune stage, as train.py:192-196.
-    writer = SummaryWriter(os.path.join(config.checkpoint_dir,
-                                        f"tb_{stage}"))
+    lead = mesh.process_index() == 0
+    writer = (SummaryWriter(os.path.join(config.checkpoint_dir,
+                                         f"tb_{stage}")) if lead else None)
 
+    # One process keeps the plain copy: against it the pinned prefetch held
+    # steps/s from step 9 on but lost 1-3 ms a warm-up step (PERF.md §6).
+    batches = (mesh.prefetch_to_device(dataset, device)
+               if mesh.process_count() > 1
+               else (batch.to(device) for batch in dataset))
     stats_buffer = []
     total_time = 0.0
     start = time.time()
     for step in range(init_step, num_steps + 1):
-        batch = next(dataset).to(device)
+        batch = next(batches)
         # The finetune stage runs at the end of the schedule (train.py:
         # 232-236). The train fraction divides by the FULL max_steps even
         # under early_exit_steps, so early exits do not race the proposal
@@ -328,26 +372,27 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
             thresholds = stats["robust_inlier_threshold"]
         stats_buffer.append(stats)
         if step == init_step or step % config.print_every == 0:
-            host = read_stats(stats_buffer, thresholds if robust else None)
-            elapsed = time.time() - start
-            total_time += elapsed
-            steps_per_sec = len(stats_buffer) / max(elapsed, 1e-9)
-            lr = scheduler.get_last_lr()[0]
-            # The last step's loss terms (and the thresholds it hands the
-            # next step).
-            terms = " ".join(f"{k}={v:.5f}" for k, v in
-                             host["terms"].items())
-            if robust:
-                terms += " inlier_threshold=" + ",".join(
-                    f"{t:.6g}" for t in host["thresholds"].tolist())
-            recorder.print(
-                f"[{stage}] {step}/{num_steps}: "
-                f"loss={float(np.mean(host['loss'])):.5f} "
-                f"psnr={float(np.mean(host['psnr'])):.3f} lr={lr:.2e} "
-                f"{steps_per_sec:.2f} steps/s "
-                f"{batch_size * steps_per_sec:.0f} rays/s {terms}")
-            train_summaries(writer, step, host, steps_per_sec,
-                            batch_size * steps_per_sec, lr, total_time)
+            if lead:
+                host = read_stats(stats_buffer, thresholds if robust else None)
+                elapsed = time.time() - start
+                total_time += elapsed
+                steps_per_sec = len(stats_buffer) / max(elapsed, 1e-9)
+                lr = scheduler.get_last_lr()[0]
+                # The last step's loss terms (and the thresholds it hands the
+                # next step).
+                terms = " ".join(f"{k}={v:.5f}" for k, v in
+                                 host["terms"].items())
+                if robust:
+                    terms += " inlier_threshold=" + ",".join(
+                        f"{t:.6g}" for t in host["thresholds"].tolist())
+                recorder.print(
+                    f"[{stage}] {step}/{num_steps}: "
+                    f"loss={float(np.mean(host['loss'])):.5f} "
+                    f"psnr={float(np.mean(host['psnr'])):.3f} lr={lr:.2e} "
+                    f"{steps_per_sec:.2f} steps/s "
+                    f"{batch_size * steps_per_sec:.0f} rays/s {terms}")
+                train_summaries(writer, step, host, steps_per_sec,
+                                batch_size * steps_per_sec, lr, total_time)
             stats_buffer = []
             start = time.time()
 
@@ -358,7 +403,7 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
         if config.train_render_every > 0 and (
                 step % config.train_render_every == 0 or step == num_steps):
             if config.model_type == "mipnerf360":
-                batches = [next(test_dataset)]
+                test_batches = [next(test_dataset)]
             else:
                 # Event number = triggers at or before `step`, counting the
                 # extra final-step trigger when num_steps is off the
@@ -366,15 +411,18 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
                 event = step // config.train_render_every
                 if step == num_steps and step % config.train_render_every:
                     event += 1
-                batches = (test_dataset.generate_ray_batch(i)
-                           for i in eval_window_indices(
-                               event, test_dataset.size,
-                               config.eval_images_num))
+                test_batches = (test_dataset.generate_ray_batch(i)
+                                for i in eval_window_indices(
+                                    event, test_dataset.size,
+                                    config.eval_images_num))
             metrics, rendering, test_batch = _eval_metrics(
-                model, batches, train_frac, config, device, harness)
-            recorder.print(f"[{stage}] {step}: eval " + " ".join(
-                f"{k}={v:.4f}" for k, v in metrics.items()))
-            render_summaries(writer, step, metrics, rendering,
-                             test_batch.rays, device)
+                model, test_batches, train_frac, config, device, harness)
+            if lead:
+                recorder.print(f"[{stage}] {step}: eval " + " ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items()))
+                render_summaries(writer, step, metrics, rendering,
+                                 test_batch.rays, device)
             start = time.time()
-    writer.close()
+    if lead:
+        writer.close()
+

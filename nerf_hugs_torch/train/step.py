@@ -10,6 +10,9 @@ groups only (Mip-NeRF 360: its embeddings): the frozen parameters take no
 gradient
 (requires_grad off), and Adam holds the trainable ones alone, which moves
 the same values as optax.multi_transform with set_to_zero on the rest.
+Under a process group the step averages the ranks' gradients before
+clipping, as JAX clips the gradient of the global batch's loss, and the
+stats it returns are means over the ranks.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from nerf_hugs_torch.core import math as nh_math
 from nerf_hugs_torch.losses import zoo
 from nerf_hugs_torch.metrics.image import mse_to_psnr
+from nerf_hugs_torch.parallel import mesh
 
 
 class OptaxAdam(torch.optim.Adam):
@@ -271,13 +275,41 @@ def train_step(model, optimizer, scheduler, batch, train_frac: float,
                                inlier_thresholds, is_finetune)
     loss.backward()
     params = {k: p for k, p in model.named_parameters() if p.requires_grad}
-    grads = clip_gradients({k: p.grad for k, p in params.items()}, config)
+    grads = mean_gradients(params)
+    grads = clip_gradients(grads, config)
     apply_gradients(optimizer, scheduler, params, grads)
-    mses = stats["mses"].detach()
-    psnrs = mse_to_psnr(mses)
     out = {k: v.detach() for k, v in stats.items() if k.startswith("robust_")}
-    out.update({"loss": loss.detach(), "mses": mses, "psnrs": psnrs,
-                "psnr": psnrs[-1],
+    out.update({"loss": loss.detach(), "mses": stats["mses"].detach(),
                 "losses": {k: v.detach()
                            for k, v in stats["losses"].items()}})
+    out = mean_stats(out)
+    out["psnrs"] = mse_to_psnr(out["mses"])
+    out["psnr"] = out["psnrs"][-1]
+    return out
+
+
+def mean_gradients(params: Dict[str, torch.nn.Parameter]
+                   ) -> Dict[str, Optional[torch.Tensor]]:
+    """The parameters' gradients, averaged over the ranks under a process
+    group (a gradient that is None on a rank enters as zeros on every
+    rank, so all ranks reduce the same leaves); one process: the .grad
+    fields as they are."""
+    if not mesh.is_distributed():
+        return {k: p.grad for k, p in params.items()}
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params.values()]
+    return dict(zip(params, mesh.mean_over_ranks(grads)))
+
+
+def mean_stats(stats: dict) -> dict:
+    """The step's stats as means over the ranks, in one all-reduce (the
+    loss, mses and terms of JAX's global batch); RobustNeRF's next
+    threshold is already the same on every rank and stays as it is."""
+    keys = [k for k in stats if k != "losses"
+            and k != "robust_inlier_threshold"]
+    terms = list(stats["losses"])
+    means = mesh.mean_over_ranks([stats[k] for k in keys]
+                                 + [stats["losses"][k] for k in terms])
+    out = dict(stats, **dict(zip(keys, means)))
+    out["losses"] = dict(zip(terms, means[len(keys):]))
     return out

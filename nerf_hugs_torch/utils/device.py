@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from nerf_hugs_torch.parallel import mesh
+
 
 def pin_fp32_precision() -> None:
     """Run float32 matmuls and convolutions in full float32, not TF32.
@@ -16,10 +18,14 @@ def pin_fp32_precision() -> None:
 
 def resolve_device(name: str) -> torch.device:
     """`cpu` or `cuda`; asking for `cuda` on a machine without a GPU raises
-    rather than falling back to the CPU."""
+    rather than falling back to the CPU. Under a process group `cuda` is
+    the rank's own card, cuda:LOCAL_RANK (mesh.maybe_initialize_distributed
+    has checked it)."""
     if name not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {name!r}")
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda requested but no CUDA device is "
                            "available")
+    if name == "cuda" and mesh.is_distributed():
+        return torch.device("cuda", mesh.local_rank())
     return torch.device(name)

@@ -18,14 +18,17 @@ import torch
 Array = Union[np.ndarray, torch.Tensor]
 
 
-def _to_tensor(x: Array, device) -> torch.Tensor:
+def _to_tensor(x: Array, device, pin: bool = False) -> torch.Tensor:
     """Host array -> device tensor; floats become float32 (the host ray
     caster works in float64, the models in float32, as jax does by
-    default)."""
+    default). With `pin` the host copy goes through pinned memory first,
+    so that the copy to the card does not wait for the host."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     if x.is_floating_point():
         x = x.float()
+    if pin:
+        x = x.pin_memory()
     return x.to(device, non_blocking=True)
 
 
@@ -36,8 +39,8 @@ class _Fields:
         return type(self)(**{f.name: fn(getattr(self, f.name))
                              for f in dataclasses.fields(self)})
 
-    def to(self, device):
-        return self.map(lambda x: _to_tensor(x, device))
+    def to(self, device, pin: bool = False):
+        return self.map(lambda x: _to_tensor(x, device, pin))
 
 
 @dataclasses.dataclass
@@ -75,10 +78,10 @@ class Batch:
     rays: Rays
     rgb: Optional[Array] = None
 
-    def to(self, device) -> "Batch":
-        return Batch(rays=self.rays.to(device),
+    def to(self, device, pin: bool = False) -> "Batch":
+        return Batch(rays=self.rays.to(device, pin),
                      rgb=None if self.rgb is None
-                     else _to_tensor(self.rgb, device))
+                     else _to_tensor(self.rgb, device, pin))
 
 
 class DataSplit(enum.Enum):
