@@ -233,6 +233,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      leaf, and 2 nccl ranks on one card refused with the port's message; (d) with two or
      more cards, (a) over nccl on cards 0 and 1, else a line saying it was
      not run.
+  20. the quality gate: `python -m nerf_hugs_torch.tools.validate_quality
+     --config ... --device cuda` trains (a) kubric_nerfacto_base.yml for
+     1000 steps and (b) kubric_nerfacto_tpu.yml for 3000 steps on the
+     procedural sphere world (the tool's scene: 32 images of 192x256,
+     96x128 at the configs' factor 2, world scale 0.35) and scores the
+     held-out test split (nerfacto starts from the JAX package's initial
+     weights, models/jax_init.py), each in a process of this script
+     (`--quality`) that runs the tool's module as `python -m` does, with
+     the launch counters read around every train step and around the
+     whole run: the
+     held-out PSNR at least JAX's (PARITY.md:278, :284-285) less 1.0 dB
+     and the SSIM at least JAX's less 0.01, hashgrid_fwd and hashgrid_bwd
+     launched in every train step, no fused-MLP kernel launched; printed:
+     the in-train eval curve, steps/s, the training wall and peak memory
+     (the tool's TIMING line), the launches per step and, for (b), the
+     device ms per step and the busy share of 5 profiled steps.
 Each train run prints its steps/s over steps 2-8 and its peak device
 memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
@@ -2817,12 +2833,154 @@ def mp_phase(torch, tmp: str, scene: str, dev) -> None:
               f"{torch.cuda.device_count()} card", flush=True)
 
 
+# Phase 20: the quality gate. Each run: (config, steps, JAX's held-out
+# PSNR and SSIM on the same scene at the same steps, whether its train
+# steps are profiled).
+QUALITY_RUNS = (("kubric_nerfacto_base", 1000, 27.42, 0.9294, False),
+                ("kubric_nerfacto_tpu", 3000, 34.73, 0.9888, True))
+# The margins below JAX's targets: the port starts from JAX's initial
+# weights and batches but draws its sample jitter and backgrounds from
+# other random streams (JAX's paired runs moved by +-0.3 dB an image,
+# PARITY.md:341).
+QUALITY_PSNR_MARGIN, QUALITY_SSIM_MARGIN = 1.0, 0.01
+QUALITY_WINDOW = (101, 5)     # the profiled train steps: first, count
+QUALITY_TIMEOUT_S = 420
+QUALITY_RESULT = re.compile(
+    r"^RESULT config=(\S+) steps=(\d+) test_psnr=(\S+) test_ssim=(\S+) "
+    r"per_image_psnr=\[(.*)\]$", re.M)
+QUALITY_TIMING = re.compile(
+    r"^TIMING config=\S+ steps_per_sec=(\S+) train_wall_s=(\S+) "
+    r"peak_gib=(\S+)$", re.M)
+
+
+def quality_main(argv: list) -> None:
+    """`chip_smoke.py --quality profile|- ARGS...`: one run of phase 20,
+    `python -m nerf_hugs_torch.tools.validate_quality ARGS` in this process
+    (runpy, as __main__), with the hash-grid launches counted around each
+    train step and every counter read around the run; with `profile`, a
+    torch.profiler window over QUALITY_WINDOW's train steps. Prints one
+    `QUALITY_CHILD {json}` line last."""
+    import runpy
+
+    sys.path.insert(0, HERE)
+    import torch
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from nerf_hugs_torch.train import step as step_lib
+    profiled, argv = argv[0] == "profile", argv[1:]
+    first, count = QUALITY_WINDOW
+    per_step, window = [], {}
+    train_step = step_lib.train_step
+
+    def counted(*args, **kwargs):
+        n = len(per_step) + 1
+        if profiled and n == first:
+            torch.cuda.synchronize()
+            window["prof"] = profiler(activities=[ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t0"] = time.time()
+        before = read_launches()
+        out = train_step(*args, **kwargs)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        if profiled and n == first + count - 1:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.time() - window["t0"]) * 1e3 / count
+            window["prof"].__exit__(None, None, None)
+        return out
+
+    step_lib.train_step = counted
+    reset_launches()
+    sys.argv = ["validate_quality"] + argv
+    runpy.run_module("nerf_hugs_torch.tools.validate_quality",
+                     run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    summary = {"steps": len(per_step), "totals": read_launches(),
+               "per_step_min": {k: min((s[k] for s in per_step), default=0)
+                                for k in DENSE},
+               "per_step_max": {k: max((s[k] for s in per_step), default=0)
+                                for k in DENSE}}
+    if profiled:
+        check("wall_ms" in window, f"the profiler window did not close: "
+                                   f"{len(per_step)} steps")
+        summary.update(mip_categorize(window["prof"], count))
+        summary["wall_ms"] = window["wall_ms"]
+        summary["busy"] = summary["device_ms"] / window["wall_ms"]
+    print("QUALITY_CHILD " + json.dumps(summary), flush=True)
+
+
+def quality_phase(tmp: str) -> list:
+    """Phase 20 (see the module's docstring); returns one reading a run."""
+    readings = []
+    for name, steps, psnr_want, ssim_want, profiled in QUALITY_RUNS:
+        argv = [__file__, "--quality", "profile" if profiled else "-",
+                "--config", f"configs/nerfacto/{name}.yml", "--steps",
+                str(steps), "--save-dir", os.path.join(tmp, "quality", name),
+                "--device", "cuda"]
+        t0 = time.time()
+        ((rc, out),) = launch_ranks(argv, None, timeout=QUALITY_TIMEOUT_S)
+        wall = time.time() - t0
+        check(rc == 0, f"quality {name}: exited with {rc}:\n{out[-4000:]}")
+        result = QUALITY_RESULT.search(out)
+        timing = QUALITY_TIMING.search(out)
+        child = re.search(r"^QUALITY_CHILD (.*)$", out, re.M)
+        check(result is not None and timing is not None and child is not None,
+              f"quality {name}: no RESULT, TIMING or QUALITY_CHILD line:\n"
+              f"{out[-4000:]}")
+        child = json.loads(child.group(1))
+        curve = [(int(s), float(p), float(q)) for s, p, q in re.findall(
+            r"\[train\] (\d+): eval psnr=(\S+) ssim=(\S+)", out)]
+        psnr, ssim = float(result.group(3)), float(result.group(4))
+        per_image = [float(x) for x in result.group(5).split(",")]
+        rate, train_wall, peak = (float(x) for x in timing.groups())
+        print(f"quality ({name}, {steps} steps): in-train eval (step, psnr, "
+              f"ssim) {curve}", flush=True)
+        print(f"quality ({name}): {result.group(0)}", flush=True)
+        print(f"quality ({name}): held-out PSNR {psnr} (JAX {psnr_want}, "
+              f"gate {psnr_want - QUALITY_PSNR_MARGIN:.2f}), SSIM {ssim} (JAX "
+              f"{ssim_want}, gate {ssim_want - QUALITY_SSIM_MARGIN:.4f}); "
+              f"{rate} steps/s after the first step, train wall {train_wall} "
+              f"s, peak device memory {peak} GiB, {wall:.1f} s with start-up "
+              f"and scoring; launches per step (min, max) "
+              f"{child['per_step_min']}, {child['per_step_max']} over "
+              f"{child['steps']} steps, whole run {child['totals']}",
+              flush=True)
+        if profiled:
+            print(f"profile (quality {name}), train steps "
+                  f"{QUALITY_WINDOW[0]}-{sum(QUALITY_WINDOW) - 1}: device "
+                  f"{child['device_ms']:.3f} ms per step, wall "
+                  f"{child['wall_ms']:.3f} ms per step, busy share "
+                  f"{child['busy']:.3f}; split {child['split']}; longest "
+                  f"{child['longest']}", flush=True)
+        check(all(math.isfinite(v) for v in [psnr, ssim] + per_image),
+              f"quality {name}: a non-finite score")
+        check(child["steps"] == steps
+              and all(child["per_step_min"][k] >= 1 for k in DENSE),
+              f"quality {name}: a train step launched no hash-grid kernel")
+        check(all(child["totals"][k] == 0 for k in
+                  FUSED + FUSED_F32 + NEVER if k not in DENSE),
+              f"quality {name}: a fused-MLP kernel launched: "
+              f"{child['totals']}")
+        check(psnr >= psnr_want - QUALITY_PSNR_MARGIN,
+              f"quality {name}: held-out PSNR {psnr} below JAX's "
+              f"{psnr_want} less {QUALITY_PSNR_MARGIN} dB")
+        check(ssim >= ssim_want - QUALITY_SSIM_MARGIN,
+              f"quality {name}: held-out SSIM {ssim} below JAX's "
+              f"{ssim_want} less {QUALITY_SSIM_MARGIN}")
+        readings.append({"name": name, "psnr": psnr, "ssim": ssim,
+                         "steps_per_s": rate, **child})
+    return readings
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
              "checkout of the repository")
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--quality"]:
+        quality_main(sys.argv[2:])
         return
     sys.path.insert(0, HERE)
     import torch
@@ -2922,6 +3080,7 @@ def main() -> None:
         llff_blender_phase(torch, tmp)
         import_phase(torch, tmp, scene, dev)
         mp_phase(torch, tmp, scene, dev)
+        quality_phase(tmp)
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

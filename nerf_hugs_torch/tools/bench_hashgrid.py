@@ -62,7 +62,8 @@ order given, and reports the steps/s over steps --first (default 9) to the
 last from the driver's print lines. A RUN is `base-synthetic` (the default: Dense
 kubric_nerfacto_base on the procedural scene of hashgrid_inputs.base_yaml),
 `base-kubric` (the same on the scene of hashgrid_inputs.write_kubric_scene,
-through the kubric loader), `hanerf-distractor` and
+through the kubric loader), `tpu-kubric` (kubric_nerfacto_tpu.yml, its
+model section whole, on that kubric scene), `hanerf-distractor` and
 `robustnerf-distractor` (distractor_nerfacto_hanerf.yml and
 distractor_nerfacto_robustnerf0.8.yml on the capture of
 hashgrid_inputs.write_colmap_scene in the distractor layout),
@@ -556,11 +557,14 @@ def host_main(args) -> dict:
     return report
 
 
-RUNS_TRAIN = ("base-synthetic", "base-kubric", "hanerf-distractor",
-              "robustnerf-distractor", "nerfw-phototourism",
-              "fused-synthetic")
-# The shipped configs of the transient runs.
-SHIPPED_RUNS = {"hanerf-distractor": "distractor_nerfacto_hanerf",
+RUNS_TRAIN = ("base-synthetic", "base-kubric", "tpu-kubric",
+              "hanerf-distractor", "robustnerf-distractor",
+              "nerfw-phototourism", "fused-synthetic")
+# The shipped configs of the runs that keep their model section whole:
+# kubric_nerfacto_tpu on the written kubric scene, the transient runs on a
+# capture in their loader's layout.
+SHIPPED_RUNS = {"tpu-kubric": "kubric_nerfacto_tpu",
+                "hanerf-distractor": "distractor_nerfacto_hanerf",
                 "robustnerf-distractor": "distractor_nerfacto_robustnerf0.8",
                 "nerfw-phototourism": "phototourism_nerfacto_nerfw"}
 
@@ -572,11 +576,12 @@ def run_inputs(run: str, tmp: str, steps: int):
     if scene_name == "kubric" and not os.path.isdir(scene):
         hashgrid_inputs.write_kubric_scene(scene)
     if run in SHIPPED_RUNS:
-        data_dir = hashgrid_inputs.write_colmap_scene(
+        cfg = hashgrid_inputs.shipped_yaml(
+            tmp, SHIPPED_RUNS[run], steps=steps, finetune_num_steps=steps)
+        if scene_name == "kubric":
+            return cfg, scene
+        return cfg, hashgrid_inputs.write_colmap_scene(
             os.path.join(tmp, f"scene_{run}"), scene_name)
-        return hashgrid_inputs.shipped_yaml(
-            tmp, SHIPPED_RUNS[run], steps=steps, finetune_num_steps=steps), \
-            data_dir
     mlp = run.split("-")[0]
     cfg = hashgrid_inputs.base_yaml(tmp, fused=mlp == "fused", steps=steps,
                                     scene=scene_name)

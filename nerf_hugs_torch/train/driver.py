@@ -52,6 +52,7 @@ from nerf_hugs_torch.configs import gin_parser, yaml_loader
 from nerf_hugs_torch.data import check_loader, load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
 from nerf_hugs_torch.models import backbone as model_backbone, construct_model
+from nerf_hugs_torch.models import jax_init
 from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
@@ -283,6 +284,11 @@ def train(args, device) -> None:
     harness = nh_image.MetricHarness(device=device)
     model = construct_model(config, device,
                             torch.Generator().manual_seed(config.seed))
+    if config.model_type == "nerfacto":
+        # train.py's own initial weights, drawn as JAX draws them: a
+        # nerfacto run's quality hangs on its initial draw by more than
+        # the 1 dB the quality gate allows (models/jax_init.py).
+        jax_init.init_nerfacto_(model)
     # Every rank starts from rank 0's parameters (train.py's ranks would
     # each draw their own: ROADMAP, known faults in the reference).
     mesh.replicate(model)
