@@ -227,7 +227,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      and, on rank 0, the profiler's device ms under it; then the eval of 2
      images as 2 ranks, its PSNR within 1e-3 dB of a one-process eval of
      the same checkpoint; (c) the same 4 steps as a world of one over nccl
-     against two runs without a group: the first step's averaged
+     against two runs without a group (those two at once on the card):
+     the first step's averaged
      gradients (after the flat all-reduce's cat and split) within phase
      5's 1e-4 of each leaf's largest entry of the first run's, leaf for
      leaf, and 2 nccl ranks on one card refused with the port's message; (d) with two or
@@ -249,6 +250,57 @@ Phases, each fatal on failure (exit code 1, no result line):
      the in-train eval curve, steps/s, the training wall and peak memory
      (the tool's TIMING line), the launches per step and, for (b), the
      device ms per step and the busy share of 5 profiled steps.
+  21. the sweep of every shipped config that no earlier phase runs: the
+     phase of each file under configs/{nerfacto,mipnerf360,hugs}/ is in
+     SHIPPED_RUNS (phase 21's own entries are SWEEP's and REFUSED's), and
+     a file it lacks fails the script. Each config of
+     SWEEP trains 3 steps through `nerf_hugs_torch.train.main` at its
+     published widths on the capture its own loader reads (phase 7's
+     kubric scene, phase 10's distractor and phase 12's phototourism
+     captures, phase 17's llff, 360 and blender scenes), only the cadence
+     and directory keys changed, with 2 finetune steps where the config
+     has the stage, then `nerf_hugs_torch.eval.main` of 1 test image (of
+     the finetune checkpoint where there is one) with the in-train eval
+     off, or, for the runs of SWEEP_COVERED (whose eval path another run
+     covers; a cut for the script's time limit), the train driver's
+     in-train eval of the last step alone, and is deleted; the launch counters are
+     read around every train step and the eval: a
+     nerfacto train step launches hashgrid_fwd and hashgrid_bwd (HA-NeRF
+     the d = 2 kernels too), a finetune step no hashgrid_bwd, a Mip-NeRF
+     360 or vanilla run no kernel, no run a fused-MLP kernel; every loss
+     and loss term finite, the eval's PNG and finite PSNR (in-train: its
+     finite PSNR); a withmask run's
+     train split has a mean static mask below 1, a RobustNeRF run's carried
+     thresholds are finite and move after step 1, a finetune stage moves
+     the appearance or GLO embedding alone (every other tensor bit-equal);
+     printed per run: steps/s over steps 2-3, peak device memory (reset
+     before the run, the cache emptied after it), eval seconds an image
+     and the launches of each step. The configs of REFUSED raise the
+     port's error through the train driver with nothing launched or
+     written; phase 15c's kubric_nerf_hanerf and phototourism_nerf_nerfw
+     runs get an eval of 1 image each;
+  22. a released-asset drop at full width, written from seeded
+     generators into the temporary directory: a torch snapshot of
+     kubric_nerfacto_base in the released layout (ckpt_8.pth), a flax
+     msgpack TrainState of kubric_1024_withmask (NerfMLP 8 x 1024,
+     utils/flax_msgpack.py::msgpack_serialize), "released" renders of
+     both from the same weights loaded straight through models/from_jax.py
+     and rendered by the port, an AlexNet-LPIPS and a SAM vit_b .pth in
+     the official key schemas and phase 7's capture as data/scene0; then
+     `python -m nerf_hugs_torch.tools.validate_released_assets` in-process
+     on the card with a --config_map (2 test images a pair): 2 rows
+     without an error, LPIPS in the released scores, finite scores of
+     ours, ours against the released renders above 45 dB in both, the
+     nerfacto eval through hashgrid_fwd and the Mip-NeRF 360 eval through
+     no kernel, both pairs in PAPER_COMPARISON.{md,json}; printed: each
+     pair's conversion and eval seconds and peak device memory.
+The captures of phases 5-22 are written by processes of this script
+(`--captures ROOT GROUP`) started after phases 1-4, whose timings make
+the kernels line, one a capture group: the kubric scene, the distractor
+and the phototourism captures beside phase 5, the llff and blender
+captures beside phases 5-16. Before the kernels line, every config that
+SHIPPED_RUNS names must have been handed to a driver (the train, eval,
+render or HuGS driver, or the quality tool) in the phase it names.
 Each train run prints its steps/s over steps 2-8 and its peak device
 memory. The planar accumulate's timing line gives its profiler time too. Each hash-grid timing line also gives the kernels' own device time from a
 torch.profiler trace: at the mask's 16384 positions the CUDA events around
@@ -263,6 +315,8 @@ kernels' JSON record and the result line.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -911,21 +965,49 @@ def stage_lines(log: str, stage: str):
              dict(t.split("=") for t in m.group(4).split())) for m in lines]
 
 
+# The shipped configs handed to a driver, as [configs/ path, the phases
+# of main's done() that ran it]: check_driven holds SHIPPED_RUNS to it.
+DRIVEN = []
+# A yaml copy written for a run -> the shipped file it copies.
+COPIES = {}
+
+
+def shipped_yaml(tmp: str, name: str, *args, **kwargs) -> str:
+    """hashgrid_inputs.shipped_yaml, remembering the copy's shipped file."""
+    from nerf_hugs_torch.tools import hashgrid_inputs
+    path = hashgrid_inputs.shipped_yaml(tmp, name, *args, **kwargs)
+    COPIES[path] = f"configs/nerfacto/{name}.yml"
+    return path
+
+
+def driven(argv: list) -> list:
+    """Records in DRIVEN each config of the driver flags `argv` (--config
+    and --gin_configs, or their copies); returns `argv`."""
+    for flag, value in zip(argv, argv[1:] + [None]):
+        path = (value if flag == "--config" else flag.split("=", 1)[1]
+                if flag.startswith("--gin_configs=") else None)
+        if path is not None:
+            path = COPIES.get(path, path)
+            DRIVEN.append([os.path.relpath(os.path.join(HERE, path), HERE),
+                           None])
+    return argv
+
+
 def config_args(cfg, data_dir: str, save_dir: str) -> list:
     """The drivers' flags on the card: `cfg` is a yaml path (--config
     --data_dir --save_dir) or a list of gin flags (--gin_configs and
     --gin_bindings), to which the directories are bound."""
     if isinstance(cfg, str):
-        return ["--config", cfg, "--data_dir", data_dir, "--save_dir",
-                save_dir, "--device", "cuda"]
-    return cfg + [f"--gin_bindings=Config.data_dir = '{data_dir}'",
-                  f"--gin_bindings=Config.checkpoint_dir = '{save_dir}'",
-                  "--device", "cuda"]
+        return driven(["--config", cfg, "--data_dir", data_dir,
+                       "--save_dir", save_dir, "--device", "cuda"])
+    return driven(cfg + [f"--gin_bindings=Config.data_dir = '{data_dir}'",
+                         f"--gin_bindings=Config.checkpoint_dir = "
+                         f"'{save_dir}'", "--device", "cuda"])
 
 
 def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
                 tag: str, expected, finetune_steps: int = 0,
-                num_steps: int = 8):
+                num_steps: int = 8, in_train_eval: bool = True):
     """`num_steps` full-width steps of `cfg_path` (a yaml path or gin
     flags, config_args) through the trainer, and its
     finetune stage of `finetune_steps` when it has one; the launch
@@ -997,8 +1079,9 @@ def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
                                       f"checkpoint_{num_steps}.pt")),
           f"no step-{num_steps} checkpoint")
     evals = re.findall(r"\[train\] \d+: eval psnr=(\S+)", log)
-    check(len(evals) == 1 and math.isfinite(float(evals[0])),
-          "the final eval printed no PSNR")
+    check(len(evals) == in_train_eval and all(
+        math.isfinite(float(v)) for v in evals),
+          f"in-train eval PSNRs {evals}, expected {int(in_train_eval)}")
     # Steps 2.., each timed from the previous print to its own (the
     # driver synchronises on the stats it prints).
     rate = (len(steps) - 1) / sum(1 / s[2] for s in steps[1:])
@@ -1009,7 +1092,8 @@ def train_phase(torch, cfg_path, data_dir: str, save_dir: str,
           f"after the "
           f"first step {rate:.3f} ({rate * batch:.0f} rays/s); losses "
           f"{[round(s[1], 5) for s in steps]}; step-{len(steps)} terms "
-          f"{terms['train'][-1]}; eval psnr {evals[0]}; peak device memory "
+          f"{terms['train'][-1]}; eval psnr "
+          f"{evals[0] if evals else 'not run'}; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {train}", flush=True)
     return launches, terms
 
@@ -1476,8 +1560,7 @@ def hugs_phase(torch, tmp: str, dev):
     from nerf_hugs_torch.hugs import segment
     from nerf_hugs_torch.hugs.sam.amg import build_point_grid
     from nerf_hugs_torch.hugs.sam.predictor import SamPredictor, build_sam
-    from nerf_hugs_torch.tools.hashgrid_inputs import (shipped_yaml,
-                                                       write_kubric_scene)
+    from nerf_hugs_torch.tools.hashgrid_inputs import write_kubric_scene
     from nerf_hugs_torch.train.driver import load_config
     t0 = time.time()
     scene = write_kubric_scene(os.path.join(tmp, "hugs_kubric"), HUGS_TRAIN,
@@ -1495,9 +1578,10 @@ def hugs_phase(torch, tmp: str, dev):
     # 2. The train split's pred/gt pairs.
     reset_launches()
     t0 = time.time()
-    eval_main(["--config", gen_cfg, "--data_dir", scene, "--save_dir",
-               save_dir, "--eval_data", "train", "--original_name",
-               "--only_pred_gt", "--device", "cuda"])
+    eval_main(driven(["--config", gen_cfg, "--data_dir", scene,
+                      "--save_dir", save_dir, "--eval_data", "train",
+                      "--original_name", "--only_pred_gt", "--device",
+                      "cuda"]))
     torch.cuda.synchronize()
     launches = read_launches()
     preds = os.path.join(save_dir, "train_preds")
@@ -1519,10 +1603,10 @@ def hugs_phase(torch, tmp: str, dev):
     torch.cuda.reset_peak_memory_stats()
     os.environ["NERF_HUGS_HUGS_TIMING"] = "1"
     t0 = time.time()
-    records = hugs_main([
+    records = hugs_main(driven([
         "--images", preds, "--colmap", os.path.join(scene, "sparse", "0"),
         "--sam_model", "vit_h", "--output", scene, "--config", config_path,
-        "--device", "cuda"])
+        "--device", "cuda"]))
     torch.cuda.synchronize()
     wall, peak = time.time() - t0, torch.cuda.max_memory_allocated()
     check(all(v == 0 for v in read_launches().values()),
@@ -1572,7 +1656,9 @@ def hugs_phase(torch, tmp: str, dev):
           f"({HUGS_SIZE}x{HUGS_SIZE} frame); decoder + filters + packing "
           f"{dec[64]:.3f} ms per batch of 64 prompts (budget 192), "
           f"{dec[256]:.3f} ms per batch of 256 (budget 64)", flush=True)
-    with open(os.path.join(HERE, "configs", "hugs", "kubric_tpu.yml")) as f:
+    tpu_path = os.path.join(HERE, "configs", "hugs", "kubric_tpu.yml")
+    driven(["--config", tpu_path])
+    with open(tpu_path) as f:
         tpu_config = segment.SegmentConfig(**yaml.safe_load(f))
     torch.cuda.reset_peak_memory_stats()
     tpu_records = segment.main(preds, os.path.join(scene, "sparse", "0"),
@@ -2132,7 +2218,6 @@ def vanilla_step_flops(cfg_path: str) -> float:
 def vanilla_phase(torch, tmp: str, scene: str, phototourism: str, dev):
     """Phase 15: vanilla NeRF (15a the toy model card vs CPU; 15b-c the
     shipped yamls at full width through the drivers)."""
-    from nerf_hugs_torch.tools.hashgrid_inputs import shipped_yaml
     vanilla_small_phase(torch, tmp, dev)
     exp = lambda name: os.path.join(tmp, "exp", f"nerf_{name}")
     base = shipped_yaml(tmp, "kubric_nerf_base")
@@ -2184,7 +2269,6 @@ def render_phase(torch, cfg, data_dir: str, save_dir: str, tag: str,
     kernels of `expected` launched and no other ported kernel did.
     Returns (the output directory, the seconds each frame took, its
     stdout)."""
-    import contextlib
     import io
 
     import yaml
@@ -2299,20 +2383,11 @@ def render_phases(torch, dense_cfg, scene: str, dense_dir: str,
           "bit for bit", flush=True)
 
 
-def llff_blender_phase(torch, tmp: str):
-    """Phase 17: llff (forward-facing through NDC, and 360) and blender
-    scenes, 4 steps and an eval of 1 image of each shipped gin, and the
-    render driver's spiral over the llff_256 run."""
-    from nerf_hugs_torch.tools.hashgrid_inputs import (write_blender_scene,
-                                                       write_llff_scene)
-    t0 = time.time()
-    scenes = {"llff_256": write_llff_scene(os.path.join(tmp, "llff"), True),
-              "360": write_llff_scene(os.path.join(tmp, "llff_360"), False),
-              "blender_256": write_blender_scene(os.path.join(tmp,
-                                                              "blender"))}
-    print(f"scenes: llff forward-facing and 360 (20 frames of 1008x756 in "
-          f"images_4/ each) and blender (8 + 2 frames of 800x800) written "
-          f"in {time.time() - t0:.1f} s", flush=True)
+def llff_blender_phase(torch, tmp: str, scenes: dict) -> None:
+    """Phase 17: on the llff (forward-facing through NDC, and 360) and
+    blender captures of `scenes` (by the gin that reads them), 4 steps and
+    an eval of 1 image of each shipped gin, and the render driver's spiral
+    over the llff_256 run."""
     readings = {}
     for name, data_dir in scenes.items():
         flags = gin_flags(name, 4, "Config.eval_dataset_limit = 1")
@@ -2360,7 +2435,6 @@ def import_phase(torch, tmp: str, scene: str, dev) -> None:
     from nerf_hugs_torch.tools import released_snapshots
     from nerf_hugs_torch.tools.convert_reference_checkpoint import (
         main as convert_main)
-    from nerf_hugs_torch.tools.hashgrid_inputs import shipped_yaml
     from nerf_hugs_torch.train import checkpoints, driver
     from nerf_hugs_torch.train.render_image import render_image
     root = os.path.join(tmp, "import")
@@ -2793,12 +2867,17 @@ def mp_phase(torch, tmp: str, scene: str, dev) -> None:
     # by the first step's averaged gradients (the parameters after Adam's
     # steps cannot tell a misplaced gradient from noise: every entry moves
     # by about the learning rate whatever its gradient).
+    # The two runs without a group share the card at once; the nccl run,
+    # whose all-reduce is timed and profiled, runs alone.
+    run = lambda name, world=None, backend=None, options="grads": mp_driver(
+        "train", cfg, scene, os.path.join(work, name), name, world, backend,
+        options=options)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        outs = dict(zip(("alone_a", "alone_b"),
+                        pool.map(run, ("alone_a", "alone_b"))))
+    outs["nccl1"] = run("nccl1", 1, "nccl", "profile,grads")
     runs = {}
-    for name, world, backend, options in (
-            ("alone_a", None, None, "grads"), ("alone_b", None, None, "grads"),
-            ("nccl1", 1, "nccl", "profile,grads")):
-        out = mp_driver("train", cfg, scene, os.path.join(work, name), name,
-                        world, backend, options=options)
+    for name, out in outs.items():
         grads = torch.load(os.path.join(work, f"{name}_train_0_grads.pt"),
                            weights_only=True)
         runs[name] = (out[0], grads, stage_lines(out[0][0], "train"))
@@ -2913,10 +2992,11 @@ def quality_phase(tmp: str) -> list:
     """Phase 20 (see the module's docstring); returns one reading a run."""
     readings = []
     for name, steps, psnr_want, ssim_want, profiled in QUALITY_RUNS:
-        argv = [__file__, "--quality", "profile" if profiled else "-",
-                "--config", f"configs/nerfacto/{name}.yml", "--steps",
-                str(steps), "--save-dir", os.path.join(tmp, "quality", name),
-                "--device", "cuda"]
+        argv = driven([
+            __file__, "--quality", "profile" if profiled else "-",
+            "--config", f"configs/nerfacto/{name}.yml", "--steps",
+            str(steps), "--save-dir", os.path.join(tmp, "quality", name),
+            "--device", "cuda"])
         t0 = time.time()
         ((rc, out),) = launch_ranks(argv, None, timeout=QUALITY_TIMEOUT_S)
         wall = time.time() - t0
@@ -2972,6 +3052,629 @@ def quality_phase(tmp: str) -> list:
     return readings
 
 
+SHIPPED_DIRS = ("nerfacto", "mipnerf360", "hugs")
+# The configs phase 21 shows refused, with the exception the port raises
+# and a part of its message: NeRF-W without the transient embedding (the
+# port refuses it before building the model, where JAX's loss fails with a
+# KeyError: ROADMAP Queue 3) and the vanilla yamls of a loader no registry
+# has (JAX's `unknown dataset_loader`, nerf_hugs_tpu/data/__init__.py:35).
+REFUSED = {
+    "configs/nerfacto/distractor_nerfacto_nerfw.yml":
+        (ValueError, "needs use_transient_embedding"),
+    **{f"configs/nerfacto/{stem}.yml":
+       (ValueError, "unknown dataset_loader 'robust'")
+       for stem in ("distractor_nerf", "distractor_nerf_hanerf",
+                    "distractor_nerf_nerfw")},
+}
+# Phase 21's trained runs: (config, the capture its loader reads). Each
+# trains SWEEP_STEPS steps (and SWEEP_FINETUNE finetune steps where the
+# config has the stage), evaluates 1 test image, and is deleted after its
+# checks.
+SWEEP = (
+    ("nerfacto/kubric_nerfacto_robustnerf0.8.yml", "kubric"),
+    ("nerfacto/kubric_nerfacto_base_addhash.yml", "kubric"),
+    ("nerfacto/kubric_nerfacto_tpu_addhash.yml", "kubric"),
+    ("nerfacto/kubric_nerf_nerfw.yml", "kubric"),
+    ("mipnerf360/kubric_1024_withmask_tpu_bf16.gin", "kubric"),
+    ("nerfacto/distractor_nerfacto_base.yml", "distractor"),
+    ("nerfacto/distractor_nerfacto_base_addhash.yml", "distractor"),
+    ("nerfacto/distractor_nerfacto_tpu.yml", "distractor"),
+    ("nerfacto/distractor_nerfacto_withmask.yml", "distractor"),
+    ("mipnerf360/distractor_1024_glo4_robustnerf0.8.gin", "distractor"),
+    ("mipnerf360/distractor_1024_glo4_withmask.gin", "distractor"),
+    ("mipnerf360/distractor_1024_glo4_withmask_tpu_bf16.gin", "distractor"),
+    ("mipnerf360/distractor_1024_glo4_nerfw_strongreg.gin", "distractor"),
+    ("nerfacto/phototourism_nerfacto_base.yml", "photo"),
+    ("nerfacto/phototourism_nerfacto_base_addhash.yml", "photo"),
+    ("nerfacto/phototourism_nerfacto_hanerf.yml", "photo"),
+    ("nerfacto/phototourism_nerfacto_robustnerf0.8.yml", "photo"),
+    ("nerfacto/phototourism_nerfacto_tpu.yml", "photo"),
+    ("nerfacto/phototourism_nerfacto_withmask.yml", "photo"),
+    ("nerfacto/phototourism_nerf_base.yml", "photo"),
+    ("nerfacto/phototourism_nerf_hanerf.yml", "photo"),
+    ("mipnerf360/phototourism_1024_robustnerf0.8.gin", "photo"),
+    ("mipnerf360/phototourism_1024_withmask.gin", "photo"),
+    ("mipnerf360/phototourism_1024_withmask_tpu_bf16.gin", "photo"),
+    ("mipnerf360/360_glo4.gin", "llff_360"),
+    ("mipnerf360/llff_512.gin", "llff"),
+    ("mipnerf360/debug.gin", "llff"),
+    ("mipnerf360/blender_512.gin", "blender"),
+)
+# A cut for the script's time limit: runs whose eval path another run
+# covers (the same backbone and loader, or the same hash_impl, widths or
+# transient head on another capture) keep the train driver's in-train
+# eval of their last step and skip the eval driver; every other run turns
+# the in-train eval off (train_render_every, a cadence key) and evaluates
+# 1 image through the eval driver. Each run renders and scores one test
+# image.
+SWEEP_COVERED = {f"configs/{c}" for c in (
+    "nerfacto/kubric_nerfacto_robustnerf0.8.yml",
+    "nerfacto/kubric_nerfacto_base_addhash.yml",
+    "nerfacto/kubric_nerfacto_tpu_addhash.yml",
+    "nerfacto/kubric_nerf_nerfw.yml",
+    "nerfacto/distractor_nerfacto_base.yml",
+    "nerfacto/distractor_nerfacto_base_addhash.yml",
+    "nerfacto/distractor_nerfacto_tpu.yml",
+    "mipnerf360/distractor_1024_glo4_robustnerf0.8.gin",
+    "mipnerf360/distractor_1024_glo4_nerfw_strongreg.gin")}
+# The file of every shipped config -> the phase that trains or refuses it
+# on the card (13 runs the HuGS yamls' segmentation stage, 17 renders with
+# render_config.gin); phase 21's are SWEEP and REFUSED. A config added
+# later that no phase names fails phase 21 and
+# tests/test_torch_port_sweep.py, and check_driven fails the script where
+# a named phase did not hand its config to a driver.
+SHIPPED_RUNS = {
+    **{f"configs/nerfacto/{stem}.yml": phase for stem, phase in (
+        ("distractor_nerfacto_hanerf", "10"),
+        ("distractor_nerfacto_robustnerf0.8", "11"),
+        ("kubric_nerf_base", "15"), ("kubric_nerf_hanerf", "15"),
+        ("kubric_nerfacto_base", "7"), ("kubric_nerfacto_gen_mask", "13"),
+        ("kubric_nerfacto_tpu", "20"), ("kubric_nerfacto_withmask", "13"),
+        ("phototourism_nerf_nerfw", "15"),
+        ("phototourism_nerfacto_nerfw", "12"))},
+    **{f"configs/mipnerf360/{stem}.gin": phase for stem, phase in (
+        ("360", "17"), ("blender_256", "17"),
+        ("distractor_1024_glo4_base", "14"),
+        ("distractor_1024_glo4_hanerf", "14"),
+        ("distractor_1024_glo4_nerfw", "14"), ("kubric_1024_base", "14"),
+        ("kubric_1024_base_tpu_bf16", "14"),
+        ("kubric_1024_robustnerf0.8", "14"), ("kubric_1024_withmask", "14"),
+        ("llff_256", "17"), ("phototourism_1024_base", "14"),
+        ("render_config", "17"))},
+    "configs/hugs/kubric.yml": "13", "configs/hugs/kubric_tpu.yml": "13",
+    **{f"configs/{config}": "21" for config, _ in SWEEP},
+    **{config: "21" for config in REFUSED},
+}
+SWEEP_STEPS, SWEEP_FINETUNE = 3, 2
+# The finetune stage may move these tensors alone (the appearance or GLO
+# embedding); every other one stays bit-equal.
+FINETUNED = ("appearance_embedding.weight", "GloEmbed_0.weight")
+
+
+def check_coverage() -> None:
+    """Every file under configs/{SHIPPED_DIRS} is in SHIPPED_RUNS and
+    nothing else is."""
+    shipped = sorted(
+        os.path.relpath(os.path.join(root, f), HERE)
+        for d in SHIPPED_DIRS
+        for root, _, files in os.walk(os.path.join(HERE, "configs", d))
+        for f in files)
+    check(shipped == sorted(SHIPPED_RUNS),
+          f"configs without a phase: "
+          f"{sorted(set(shipped) - set(SHIPPED_RUNS))}; named but absent: "
+          f"{sorted(set(SHIPPED_RUNS) - set(shipped))}")
+
+
+def check_driven() -> None:
+    """Each SHIPPED_RUNS config was handed to a driver (DRIVEN) in the
+    phases that name it."""
+    def within(phase: str, phases) -> bool:
+        first, _, last = (phases or "0").partition("-")
+        return int(first) <= int(phase) <= int(last or first)
+    missed = sorted(f"{config} (phase {phase})"
+                    for config, phase in SHIPPED_RUNS.items()
+                    if not any(path == config and within(phase, phases)
+                               for path, phases in DRIVEN))
+    check(not missed, f"no driver of the named phase was given: {missed}")
+    print(f"coverage: all {len(SHIPPED_RUNS)} shipped configs were handed "
+          f"to a driver in the phase that SHIPPED_RUNS names", flush=True)
+
+
+def sweep_flags(tmp: str, config: str, in_train_eval: bool = True):
+    """The drivers' config of `config` (configs/ relative) as shipped, with
+    the cadence keys alone changed: exit after SWEEP_STEPS, print every
+    step, 1 eval image, SWEEP_FINETUNE finetune steps (read only where the
+    config has the stage), and without `in_train_eval` no in-train eval."""
+    stem = os.path.splitext(os.path.basename(config))[0]
+    if config.endswith(".yml"):
+        off = {} if in_train_eval else {"eval_render_every": 0}
+        return shipped_yaml(tmp, stem, steps=SWEEP_STEPS,
+                            eval_dataset_limit=1,
+                            finetune_num_steps=SWEEP_FINETUNE, **off)
+    off = [] if in_train_eval else ["Config.train_render_every = 0"]
+    return gin_flags(stem, SWEEP_STEPS, "Config.eval_dataset_limit = 1",
+                     f"Config.finetune_max_steps = {SWEEP_FINETUNE}", *off)
+
+
+def sweep_run(torch, tmp: str, config: str, data_dir: str) -> dict:
+    """One trained run of phase 21 through the train and eval drivers with
+    the checks of the module docstring; returns its readings."""
+    import shutil
+
+    import numpy as np
+    from nerf_hugs_torch.train import driver
+    from nerf_hugs_torch.train import step as step_lib
+    stem = os.path.splitext(os.path.basename(config))[0]
+    save_dir = os.path.join(tmp, "exp", f"sweep_{stem}")
+    covered = f"configs/{config}" in SWEEP_COVERED
+    flags = sweep_flags(os.path.join(tmp, "sweep"), config, covered)
+    cfg = driver.load_config_from_args(driver.parse_args(
+        config_args(flags, data_dir, save_dir)))
+    finetune = SWEEP_FINETUNE if cfg.finetune_enable else 0
+    nerfacto = cfg.model_type == "nerfacto"
+    expected = (HANERF if cfg.transient_type == "hanerf" else DENSE) \
+        if nerfacto else NOT_ANY
+
+    # The launches of each step and the train split the run read.
+    per_step = []
+    datasets = {}
+    train_step, stage_dataset = step_lib.train_step, driver.stage_dataset
+
+    def counted_step(*args):
+        before = read_launches()
+        out = train_step(*args)
+        after = read_launches()
+        per_step.append(("finetune" if args[8] else "train",
+                         {k: after[k] - before[k] for k in after}))
+        return out
+
+    def recorded_dataset(stage, config):
+        datasets[stage] = stage_dataset(stage, config)
+        return datasets[stage]
+
+    step_lib.train_step = counted_step
+    driver.stage_dataset = recorded_dataset
+    try:
+        launches, terms = train_phase(torch, flags, data_dir, save_dir,
+                                      f"sweep {stem}", expected,
+                                      finetune_steps=finetune,
+                                      num_steps=SWEEP_STEPS,
+                                      in_train_eval=covered)
+    finally:
+        step_lib.train_step, driver.stage_dataset = train_step, stage_dataset
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(save_dir, "run_log.log")) as f:
+        rates = [s[2] for s in stage_lines(f.read(), "train")[1:]]
+    reading = {"steps_per_s": len(rates) / sum(1 / r for r in rates),
+               "peak_gib": peak}
+
+    stages = [s for s, _ in per_step]
+    check(stages == ["train"] * SWEEP_STEPS + ["finetune"] * finetune,
+          f"{stem}: steps by stage {stages}")
+    for stage, counts in per_step:
+        if stage == "train":
+            check(all(counts[k] > 0 for k in expected),
+                  f"{stem}: a train step launched {counts}")
+        else:
+            check(counts["hashgrid_bwd"] == 0 and (
+                not nerfacto or counts["hashgrid_fwd"] > 0),
+                  f"{stem}: a finetune step launched {counts}")
+        check(all(counts[k] == 0 for k in counts if k not in expected),
+              f"{stem}: a step launched a kernel off its path: {counts}")
+    check(all(math.isfinite(float(v)) for t in terms["finetune"]
+              for v in t.values()), f"{stem}: non-finite finetune terms")
+    reading["launches_per_step"] = {
+        stage: {k: v for k, v in per_step[i][1].items() if v}
+        for i, (stage, _) in enumerate(per_step)}
+
+    notes = []
+    if cfg.transient_type == "withmask":
+        mean = float(np.mean([m.mean() for m in
+                              datasets["train"].static_masks]))
+        notes.append(f"train split's mean static mask {mean:.4f}")
+        check(mean < 1.0, f"{stem}: the withmask run read masks of ones")
+    if cfg.transient_type == "robustnerf":
+        thresholds = [[float(v) for v in t["inlier_threshold"].split(",")]
+                      for t in terms["train"]]
+        notes.append(f"thresholds handed on {thresholds}")
+        check(all(math.isfinite(v) for t in thresholds for v in t),
+              f"{stem}: non-finite RobustNeRF thresholds {thresholds}")
+        check(thresholds[0] != [1.0] * len(thresholds[0]) and any(
+            t != thresholds[0] for t in thresholds[1:]),
+              f"{stem}: the RobustNeRF threshold does not move: "
+              f"{thresholds}")
+    if finetune:
+        before, after = (torch.load(os.path.join(*d), weights_only=True)[
+            "model"] for d in ((save_dir, f"checkpoint_{SWEEP_STEPS}.pt"),
+                               (save_dir, "finetune",
+                                f"checkpoint_{finetune}.pt")))
+        moved = sorted(k for k in before if not torch.equal(before[k],
+                                                            after[k]))
+        notes.append(f"finetune moved {moved} of {len(before)} tensors")
+        check(moved and all(k in FINETUNED for k in moved),
+              f"{stem}: the finetune stage moved {moved}")
+    if covered:
+        notes.append("the in-train eval's image (eval driver not run)")
+    else:
+        summary = (f"metrics_test_finetune_{finetune}.txt" if finetune
+                   else f"metrics_test_{SWEEP_STEPS}.txt")
+        t0 = time.time()
+        eval_phase(torch, flags, data_dir, save_dir, f"sweep {stem}",
+                   expected, score=False, summary=summary, images=1,
+                   ssim_min=-1.0)
+        reading["eval_s"] = time.time() - t0
+        notes.append(f"eval {reading['eval_s']:.2f} s an image")
+    print(f"sweep ({stem}): {reading['steps_per_s']:.3f} steps/s over "
+          f"steps 2-{SWEEP_STEPS}, peak {peak:.2f} GiB; launches per step "
+          f"{reading['launches_per_step']}; " + "; ".join(notes), flush=True)
+    shutil.rmtree(save_dir)
+    torch.cuda.empty_cache()
+    return reading
+
+
+def refused_run(torch, tmp: str, config: str, data_dir: str) -> str:
+    """A REFUSED config through the train driver: its error and message,
+    and nothing launched or written."""
+    from nerf_hugs_torch.train import main as train_main
+    error, message = REFUSED[config]
+    stem = os.path.splitext(os.path.basename(config))[0]
+    save_dir = os.path.join(tmp, "exp", f"sweep_{stem}")
+    flags = sweep_flags(os.path.join(tmp, "sweep"), config)
+    reset_launches()
+    try:
+        train_main(config_args(flags, data_dir, save_dir))
+        raised = None
+    except error as e:
+        raised = str(e)
+    check(raised is not None and message in raised,
+          f"{stem}: trained, or raised another error than {message!r}: "
+          f"{raised!r}")
+    check(not any(read_launches().values()) and not os.path.exists(
+        save_dir), f"{stem}: the refused run launched or wrote something")
+    print(f"sweep ({stem}): refused with {error.__name__}: {raised}",
+          flush=True)
+    return raised
+
+
+def sweep_phase(torch, tmp: str, captures: dict) -> dict:
+    """Phase 21 (see the module's docstring); returns the readings a run."""
+    check_coverage()
+    os.makedirs(os.path.join(tmp, "sweep"))
+    t0 = time.time()
+    readings = {}
+    for config, capture in SWEEP:
+        readings[config] = sweep_run(torch, tmp, config, captures[capture])
+    for config in sorted(REFUSED):
+        refused_run(torch, tmp, config, captures["distractor"])
+    # The evals phase 15c's vanilla runs had not had.
+    for stem, capture, summary in (
+            ("kubric_nerf_hanerf", "kubric", "metrics_test_4.txt"),
+            ("phototourism_nerf_nerfw", "photo",
+             "metrics_test_finetune_2.txt")):
+        cfg = shipped_yaml(os.path.join(tmp, "sweep"), stem, steps=4,
+                           eval_dataset_limit=1, finetune_num_steps=2)
+        t1 = time.time()
+        eval_phase(torch, cfg, captures[capture],
+                   os.path.join(tmp, "exp", f"nerf_{stem.split('_')[-1]}"),
+                   f"sweep {stem}, phase 15c's run", NOT_ANY, score=False,
+                   summary=summary, images=1, ssim_min=-1.0)
+        readings[f"nerfacto/{stem}.yml"] = {"eval_s": time.time() - t1}
+    print(f"sweep: {len(SWEEP)} configs trained and evaluated "
+          f"({len(SWEEP) - len(SWEEP_COVERED)} through the eval driver), "
+          f"{len(REFUSED)} refused, 2 evals of phase 15c's runs in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return readings
+
+
+# Phase 22: a synthetic drop of released assets at full width, validated
+# by `python -m nerf_hugs_torch.tools.validate_released_assets`.
+RELEASED_PAIRS = (
+    ("kubric_nerfacto_base", "nerfacto/kubric_nerfacto_base.yml",
+     ("hashgrid_fwd",)),
+    ("kubric_1024_withmask", "mipnerf360/kubric_1024_withmask.gin",
+     NOT_ANY))
+RELEASED_STEP = 8
+RELEASED_IMAGES = 2         # eval_dataset_limit of the mapped configs
+RELEASED_PSNR = 45.0        # dB, tests/test_released_assets_dryrun.py:127
+
+
+def lpips_official(path: str, seed: int) -> None:
+    """AlexNet-LPIPS weights in the official key schema (net.slice{k}.{i}
+    convolutions of torchvision's AlexNet, lin{i}.model.1 heads) from a
+    seeded generator."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    sd, in_ch = {}, 3
+    for i, (out_ch, k, idx) in enumerate(((64, 11, 0), (192, 5, 3),
+                                          (384, 3, 6), (256, 3, 8),
+                                          (256, 3, 10))):
+        fan_in = in_ch * k * k
+        sd[f"net.slice{i + 1}.{idx}.weight"] = torch.from_numpy(rng.normal(
+            0, (2 / fan_in) ** 0.5, (out_ch, in_ch, k, k)).astype(np.float32))
+        sd[f"net.slice{i + 1}.{idx}.bias"] = torch.zeros(out_ch)
+        sd[f"lin{i}.model.1.weight"] = torch.from_numpy(np.abs(rng.normal(
+            0, 0.1, (1, out_ch, 1, 1))).astype(np.float32))
+        in_ch = out_ch
+    torch.save(sd, path)
+
+
+def sam_official(path: str, dev) -> int:
+    """SAM vit_b in the official key schema, the mask-prompt downscaling
+    layers of every official file included, from a seeded generator on the
+    card; returns its parameter count without those layers."""
+    import torch
+    from nerf_hugs_torch.hugs.sam.predictor import build_sam
+    sd = {k: v.cpu() for k, v in build_sam("vit_b", device=dev,
+                                           rng_seed=3).state_dict().items()}
+    count = sum(v.numel() for v in sd.values())
+    gen = torch.Generator().manual_seed(4)
+    for name, shape in (("0.weight", (4, 1, 2, 2)), ("0.bias", (4,)),
+                        ("1.weight", (4,)), ("1.bias", (4,)),
+                        ("3.weight", (16, 4, 2, 2)), ("3.bias", (16,)),
+                        ("4.weight", (16,)), ("4.bias", (16,)),
+                        ("6.weight", (256, 16, 1, 1)), ("6.bias", (256,))):
+        sd[f"prompt_encoder.mask_downscaling.{name}"] = torch.randn(
+            shape, generator=gen)
+    torch.save(sd, path)
+    return count
+
+
+def mapped_config(root: str, config: str) -> str:
+    """A copy of configs/{config} in `root` evaluating RELEASED_IMAGES test
+    images (the --config_map target)."""
+    import yaml
+    src = os.path.join(HERE, "configs", config)
+    dst = os.path.join(root, os.path.basename(config))
+    if config.endswith(".yml"):
+        with open(src) as f:
+            raw = yaml.safe_load(f)
+        raw["base"]["eval_dataset_limit"] = RELEASED_IMAGES
+        with open(dst, "w") as f:
+            yaml.safe_dump(raw, f)
+    else:
+        with open(src) as f, open(dst, "w") as out:
+            out.write(f.read() + f"\nConfig.eval_dataset_limit = "
+                                 f"{RELEASED_IMAGES}\n")
+    return dst
+
+
+def released_renders(torch, config, state: dict, data_dir: str,
+                     out_dir: str, dev) -> None:
+    """rendering_results' test_preds of a model loaded straight from
+    `state` (a port state dict): {i}_color.png rendered by the port at the
+    eval's train_frac, {i}_gt.png the test image as eval composites it."""
+    import numpy as np
+    from nerf_hugs_torch.data import load_dataset
+    from nerf_hugs_torch.metrics import image as nh_image
+    from nerf_hugs_torch.models import construct_model
+    from nerf_hugs_torch.train.render_image import render_image
+    from nerf_hugs_torch.utils import io as nh_io
+    model = construct_model(config, dev, torch.Generator().manual_seed(5))
+    model.load_state_dict(state)
+    dataset = load_dataset("test", data_dir, config, is_training=False)
+    train_frac = float(np.clip(RELEASED_STEP / config.max_steps, 0, 1))
+    os.makedirs(out_dir)
+    for i in range(RELEASED_IMAGES):
+        batch = dataset.generate_ray_batch(i)
+        rgb = render_image(model, batch.rays, train_frac, config, dev)["rgb"]
+        nh_io.save_img_u8(np.clip(np.nan_to_num(rgb), 0, 1),
+                          os.path.join(out_dir, f"{i:03d}_color.png"))
+        nh_io.save_img_u8(nh_image.composite_alpha(
+            np.asarray(batch.rgb),
+            nh_image.BACKGROUND_VALUES[config.test_background_color]),
+            os.path.join(out_dir, f"{i:03d}_gt.png"))
+    del model
+
+
+def released_phase(torch, tmp: str, scene: str, dev) -> list:
+    """Phase 22 (see the module's docstring); returns the report's rows."""
+    import yaml
+    from nerf_hugs_torch.configs import gin_parser
+    from nerf_hugs_torch.models import construct_model, from_jax
+    from nerf_hugs_torch.models import nerfacto_import
+    from nerf_hugs_torch.tools import convert_reference_checkpoint as conv
+    from nerf_hugs_torch.tools import released_snapshots
+    from nerf_hugs_torch.tools import validate_released_assets as vra
+    from nerf_hugs_torch.train import driver
+    from nerf_hugs_torch.utils import flax_msgpack
+    import nerf_hugs_torch.eval as eval_pkg
+    root = os.path.join(tmp, "released")
+    drop = os.path.join(root, "drop")
+    os.makedirs(os.path.join(drop, "data"))
+    os.symlink(scene, os.path.join(drop, "data", "scene0"))
+    t0 = time.time()
+    config_map = {}
+    for experiment, config, _ in RELEASED_PAIRS:
+        mapped = config_map[experiment] = mapped_config(root, config)
+        ckpt_dir = os.path.join(drop, "checkpoints", experiment, "scene0")
+        os.makedirs(ckpt_dir)
+        renders = os.path.join(drop, "rendering_results", experiment,
+                               "scene0", "test_preds")
+        if config.endswith(".yml"):
+            cfg = driver.load_config(mapped, scene, root)
+            model = construct_model(cfg, "cpu",
+                                    torch.Generator().manual_seed(0))
+            snapshot = released_snapshots.nerfacto_snapshot(
+                model, cfg, 0, RELEASED_STEP)
+            torch.save(snapshot, os.path.join(ckpt_dir,
+                                              f"ckpt_{RELEASED_STEP}.pth"))
+            # Rendered as the converter's emitted config.yml composites.
+            with open(mapped) as f:
+                raw = yaml.safe_load(f)
+            raw["model"]["legacy_cumulative_deltas"] = True
+            legacy = os.path.join(root, f"{experiment}_legacy.yml")
+            with open(legacy, "w") as f:
+                yaml.safe_dump(raw, f)
+            cfg = driver.load_config(legacy, scene, root)
+            sd = {k: v.numpy() for k, v in snapshot["model"].items()
+                  if not k.endswith(nerfacto_import._IGNORED_SUFFIXES)}
+            state = from_jax.convert_nerfacto_params(
+                nerfacto_import.convert_nerfacto_state_dict(sd, cfg))
+        else:
+            cfg = gin_parser.parse_gin_configs([mapped], [])
+            model = construct_model(cfg, "cpu",
+                                    torch.Generator().manual_seed(0))
+            train_state = released_snapshots.mipnerf360_train_state(
+                model, 1, RELEASED_STEP)
+            with open(os.path.join(ckpt_dir, f"checkpoint_{RELEASED_STEP}"),
+                      "wb") as f:
+                f.write(flax_msgpack.msgpack_serialize(train_state))
+            state = from_jax.convert_mipnerf360_params(
+                train_state["params"])
+        del model
+        released_renders(torch, cfg, state, scene, renders, dev)
+    lpips_official(os.path.join(drop, "lpips_alex.pth"), 6)
+    sam_count = sam_official(os.path.join(drop, "sam_vit_b.pth"), dev)
+    map_path = os.path.join(root, "config_map.json")
+    with open(map_path, "w") as f:
+        json.dump(config_map, f)
+    sizes = {name: sum(os.path.getsize(os.path.join(d, n))
+                       for d, _, files in os.walk(os.path.join(drop, name))
+                       for n in files) / 2 ** 20
+             for name in ("checkpoints", "rendering_results")}
+    print(f"released drop: written in {time.time() - t0:.1f} s (checkpoints "
+          f"{sizes['checkpoints']:.1f} MiB, renders "
+          f"{sizes['rendering_results']:.2f} MiB, LPIPS and SAM vit_b "
+          f".pth)", flush=True)
+
+    # Each pair's conversion and eval timed, with the eval's launches and
+    # the pair's peak device memory.
+    timings = {}
+    current = [None]          # the pair being validated
+    patched = (vra.validate_pair, conv.main, eval_pkg.main)
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            if key == "eval":
+                reset_launches()
+            t = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timings.setdefault(current[0], {})[key] = time.time() - t
+            if key == "eval":
+                timings[current[0]]["launches"] = read_launches()
+            return out
+        return call
+
+    def pair(experiment, *args, **kwargs):
+        current[0] = experiment
+        torch.cuda.reset_peak_memory_stats()
+        row = patched[0](experiment, *args, **kwargs)
+        timings[experiment]["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                           / 2 ** 30)
+        torch.cuda.empty_cache()
+        return row
+
+    work = os.path.join(root, "work")
+    vra.validate_pair, conv.main = pair, timed("convert", conv.main)
+    eval_pkg.main = timed("eval", eval_pkg.main)
+    try:
+        t0 = time.time()
+        rows, extras = vra.main(["--assets_dir", drop, "--work_dir", work,
+                                 "--config_map", map_path, "--device", dev])
+        wall = time.time() - t0
+    finally:
+        vra.validate_pair, conv.main, eval_pkg.main = patched
+    rows = {r["experiment"]: r for r in rows}
+    check(sorted(rows) == sorted(e for e, _, _ in RELEASED_PAIRS)
+          and not any("error" in r for r in rows.values()),
+          f"released: rows {json.dumps(list(rows.values()), default=str)}")
+    check(extras["lpips"]["ok"] and extras["sam"]["converted_param_count"]
+          == sam_count, f"released: extras {extras}")
+    for experiment, _, expected in RELEASED_PAIRS:
+        row, t = rows[experiment], timings[experiment]
+        check("lpips" in row["released_scores"] and all(
+            math.isfinite(v) for v in row["our_scores"].values()),
+              f"released {experiment}: scores {row}")
+        check(row["ours_vs_released_psnr"] > RELEASED_PSNR,
+              f"released {experiment}: ours against the released renders "
+              f"{row['ours_vs_released_psnr']} dB")
+        launched = t["launches"]
+        check(all(launched[k] > 0 for k in expected) and all(
+            launched[k] == 0 for k in launched if k not in expected),
+              f"released {experiment}: the eval launched {launched}")
+        print(f"released ({experiment}): converted in {t['convert']:.2f} s, "
+              f"eval of {RELEASED_IMAGES} images in {t['eval']:.2f} s, peak "
+              f"{t['peak_gib']:.2f} GiB; released "
+              f"{row['released_scores']}; ours {row['our_scores']}; ours "
+              f"against released {row['ours_vs_released_psnr']} dB (bar "
+              f"{RELEASED_PSNR}); eval launches "
+              f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    for name in ("PAPER_COMPARISON.md", "PAPER_COMPARISON.json"):
+        with open(os.path.join(work, name)) as f:
+            text = f.read()
+        check(all(e in text for e, _, _ in RELEASED_PAIRS),
+              f"released: {name} does not name both pairs")
+    print(f"released: the twin validated the drop in {wall:.1f} s; LPIPS "
+          f"{extras['lpips']}; SAM vit_b "
+          f"{extras['sam']['converted_param_count']} parameters", flush=True)
+    return list(rows.values())
+
+
+# The captures of phases 5-22, written by processes of this script
+# (`--captures ROOT GROUP`) while the main process checks the kernels:
+# the kubric scene and the distractor and phototourism captures (read from
+# phase 5 on), and the llff and blender ones (from phase 17 on).
+CAPTURE_GROUPS = ("kubric", "distractor", "photo", "llff")
+CAPTURES_TIMEOUT_S = 600
+
+
+def write_captures(root: str, group: str) -> None:
+    """Write `group` of CAPTURE_GROUPS under `root` and print the seconds
+    it took: the kubric scene, the distractor or the phototourism capture
+    (32 + 4 frames each), or the forward-facing and 360 llff captures and
+    the blender scene."""
+    sys.path.insert(0, HERE)
+    from nerf_hugs_torch.tools import hashgrid_inputs
+    t0 = time.time()
+    if group == "kubric":
+        hashgrid_inputs.write_kubric_scene(os.path.join(root, "kubric"))
+    elif group in ("distractor", "photo"):
+        hashgrid_inputs.write_colmap_scene(
+            os.path.join(root, group),
+            "phototourism" if group == "photo" else group)
+    elif group == "llff":
+        hashgrid_inputs.write_llff_scene(os.path.join(root, "llff"), True)
+        hashgrid_inputs.write_llff_scene(os.path.join(root, "llff_360"),
+                                         False)
+        hashgrid_inputs.write_blender_scene(os.path.join(root, "blender"))
+    else:
+        fail(f"unknown capture group {group!r}")
+    print(f"{time.time() - t0:.3f}", flush=True)
+
+
+@contextlib.contextmanager
+def capture_writers(root: str):
+    """Starts a writer for each of CAPTURE_GROUPS; yields wait(group),
+    which returns the writer's seconds and fails the script if it did not
+    exit 0 within CAPTURES_TIMEOUT_S. A writer still running on exit is
+    killed."""
+    procs = {group: subprocess.Popen(
+        [sys.executable, __file__, "--captures", root, group], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for group in CAPTURE_GROUPS}
+
+    def wait(group: str) -> float:
+        try:
+            out = procs[group].communicate(timeout=CAPTURES_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            fail(f"captures ({group}): still writing after "
+                 f"{CAPTURES_TIMEOUT_S} s")
+        check(procs[group].returncode == 0,
+              f"captures ({group}): exited with {procs[group].returncode}:"
+              f"\n{out[-4000:]}")
+        return float(out.split()[-1])
+
+    try:
+        yield wait
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "nerf_hugs_torch")):
         fail("nerf_hugs_torch/ is not beside this script: run it from a "
@@ -2982,11 +3685,21 @@ def main() -> None:
     if sys.argv[1:2] == ["--quality"]:
         quality_main(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--captures"]:
+        write_captures(*sys.argv[2:4])
+        return
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
     dev = "cuda"
+    start = time.time()
+
+    def done(phases: str) -> None:
+        for entry in DRIVEN:
+            entry[1] = entry[1] or phases
+        print(f"time: phases {phases} done at {time.time() - start:.1f} s",
+              flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2996,8 +3709,7 @@ def main() -> None:
 
     from nerf_hugs_torch.ops import fused_mlp, hashgrid, hashgrid_bwd, kernels
     from nerf_hugs_torch.tools.hashgrid_inputs import (
-        MASK_N, base_yaml, shipped_yaml, write_colmap_scene,
-        write_kubric_scene)
+        MASK_N, PHOTOTOURISM_SCENE, base_yaml)
     from nerf_hugs_torch.utils.device import pin_fp32_precision
     pin_fp32_precision()
     kernels.load()
@@ -3008,23 +3720,31 @@ def main() -> None:
             if re.search(r"Used \d+ registers|spill", line):
                 print(f"ptxas {src}: {line.strip()}", flush=True)
 
-    worst, timings = kernel_phase(torch, hashgrid, hashgrid_bwd, dev)
-    worst_2d, timings_2d = mask_kernel_phase(torch, hashgrid, hashgrid_bwd,
-                                             dev)
-    fused_worst, fused_timings = fused_mlp_phase(torch, fused_mlp, dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        scene = write_kubric_scene(os.path.join(tmp, "kubric"))
-        distractor = write_colmap_scene(os.path.join(tmp, "distractor"),
-                                        "distractor")
-        phototourism = write_colmap_scene(os.path.join(tmp, "photo"),
-                                          "phototourism")
-        print(f"scenes: 32 train + 4 test frames each, kubric and "
-              f"distractor at 256x256, phototourism at 512x512, written in "
-              f"{time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
+        worst, timings = kernel_phase(torch, hashgrid, hashgrid_bwd, dev)
+        worst_2d, timings_2d = mask_kernel_phase(torch, hashgrid,
+                                                 hashgrid_bwd, dev)
+        fused_worst, fused_timings = fused_mlp_phase(torch, fused_mlp, dev)
+        done("1-4")
+        # The writers start after the kernels line's timings, which their
+        # CPU load would disturb.
+        wait_captures = stack.enter_context(capture_writers(tmp))
         for variant in SMALL_VARIANTS:
             small_model_phase(torch, tmp, dev, variant)
+        done("5")
+        t0 = time.time()
+        seconds = max(wait_captures(g) for g in ("kubric", "distractor",
+                                                  "photo"))
+        scene = os.path.join(tmp, "kubric")
+        distractor = os.path.join(tmp, "distractor")
+        phototourism = os.path.join(tmp, "photo", PHOTOTOURISM_SCENE)
+        print(f"scenes: 32 train + 4 test frames each, kubric and "
+              f"distractor at 256x256, phototourism at 512x512, written in "
+              f"{seconds:.1f} s (the slowest writer) beside phase 5 "
+              f"(waited {time.time() - t0:.1f} s)", flush=True)
         dense_cfg = base_yaml(tmp, fused=False, scene="kubric")
+        COPIES[dense_cfg] = "configs/nerfacto/kubric_nerfacto_base.yml"
         hanerf_cfg = shipped_yaml(tmp, "distractor_nerfacto_hanerf")
         captured_worst, _ = captured_phase(torch, hashgrid, hashgrid_bwd,
                                            dense_cfg, scene, dev)
@@ -3033,6 +3753,7 @@ def main() -> None:
             torch, hashgrid, hashgrid_bwd, hanerf_cfg, distractor, dev,
             ("mask",))
         worst_2d = {k: max(v, captured_worst[k]) for k, v in worst_2d.items()}
+        done("6")
         launches, terms = train_phase(torch, dense_cfg, scene,
                                       os.path.join(tmp, "exp", "dense"),
                                       "Dense MLPs, kubric scene", DENSE)
@@ -3070,17 +3791,43 @@ def main() -> None:
         nerfw_phase(torch, shipped_yaml(
             tmp, "phototourism_nerfacto_nerfw", finetune_num_steps=4),
             phototourism, os.path.join(tmp, "exp", "nerfw"))
+        done("7-12")
         sam_card_phase(torch, dev)
         hugs_phase(torch, tmp, dev)
+        done("13")
         mip_phase(torch, tmp, scene, distractor, phototourism, dev)
+        done("14")
         vanilla_phase(torch, tmp, scene, phototourism, dev)
+        done("15")
         render_phases(torch, dense_cfg, scene,
                       os.path.join(tmp, "exp", "dense"), fused_cfg, tmp,
                       fused_dir)
-        llff_blender_phase(torch, tmp)
+        done("16")
+        t0 = time.time()
+        seconds = wait_captures("llff")
+        print(f"scenes: llff forward-facing and 360 (20 frames of 1008x756 "
+              f"in images_4/ each) and blender (8 + 2 frames of 800x800) "
+              f"written in {seconds:.1f} s beside phases 5-16 (waited "
+              f"{time.time() - t0:.1f} s)", flush=True)
+        llff = {"llff_256": os.path.join(tmp, "llff"),
+                "360": os.path.join(tmp, "llff_360"),
+                "blender_256": os.path.join(tmp, "blender")}
+        llff_blender_phase(torch, tmp, llff)
+        done("17")
         import_phase(torch, tmp, scene, dev)
+        done("18")
         mp_phase(torch, tmp, scene, dev)
+        done("19")
         quality_phase(tmp)
+        done("20")
+        sweep_phase(torch, tmp, {
+            "kubric": scene, "distractor": distractor, "photo": phototourism,
+            "llff": llff["llff_256"], "llff_360": llff["360"],
+            "blender": llff["blender_256"]})
+        done("21")
+        released_phase(torch, tmp, scene, dev)
+        done("22")
+    check_driven()
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")
     check("nerf_hugs_tpu" not in sys.modules, "nerf_hugs_tpu was imported")

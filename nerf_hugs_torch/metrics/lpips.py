@@ -41,10 +41,16 @@ _SCALE = np.array([0.458, 0.448, 0.450], np.float32)
 
 
 def _alexnet_features(params: Dict[str, torch.Tensor], x: torch.Tensor):
+    """The feature maps at the 5 taps; fewer where an image is too small
+    for a pooling window or a kernel, whose maps would be empty."""
     feats = []
-    for i, (_, _, stride, pad) in enumerate(_ALEX_CONVS):
+    for i, (_, kernel, stride, pad) in enumerate(_ALEX_CONVS):
         if i in _POOL_BEFORE:
+            if min(x.shape[-2:]) < 3:
+                break
             x = F.max_pool2d(x, kernel_size=3, stride=2)
+        if min(x.shape[-2:]) + 2 * pad < kernel:
+            break
         x = F.conv2d(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
                      stride=stride, padding=pad)
         x = F.relu(x)
@@ -100,6 +106,10 @@ class LPIPS:
         pin_fp32_precision()
         f0 = _alexnet_features(self.params, self._prep(img0))
         f1 = _alexnet_features(self.params, self._prep(img1))
+        if len(f0) < len(_ALEX_CONVS):
+            # An empty map's spatial mean is NaN, and so is the JAX
+            # package's distance.
+            return torch.tensor(float("nan"), device=self.device)
         total = torch.zeros((), device=self.device)
         for i, (a, b) in enumerate(zip(f0, f1)):
             d = (_unit_normalize(a) - _unit_normalize(b)) ** 2

@@ -1,13 +1,16 @@
 """Torch snapshots in the layout of the reference's released checkpoints,
 made from a seeded numpy generator at the shapes of a port model, for
 checking the import of models/nerfacto_import.py and
-models/torch_compat.py where no released checkpoint is at hand.
+models/torch_compat.py where no released checkpoint is at hand; and the
+flax TrainState tree of a released Mip-NeRF 360 checkpoint, which
+utils/flax_msgpack.py::msgpack_serialize writes as the reference's
+checkpoint_N file.
 
 Values: tcnn grids in fp16 from U(-1e-4, 1e-4) (tcnn's initialisation),
-Linear weights from N(0, 1 / fan_in), biases and embeddings from
-N(0, 0.1). Each snapshot is {'model': state dict of CPU tensors,
-'state': {'global_step': step}}, as the reference's save_snapshot writes
-it (nerfacto/utils/checkpoint_utils.py:27-47).
+Linear weights (flax Dense kernels) from N(0, 1 / fan_in), biases and
+embeddings from N(0, 0.1). Each snapshot is {'model': state dict of CPU
+tensors, 'state': {'global_step': step}}, as the reference's
+save_snapshot writes it (nerfacto/utils/checkpoint_utils.py:27-47).
 """
 
 from __future__ import annotations
@@ -120,3 +123,28 @@ def vanilla_snapshot(model: torch.nn.Module, config, seed: int,
         for k, leaf, shape in leaves:
             shapes[f"{names[k]}.{leaf}"] = shape
     return _snapshot(shapes, seed, step)
+
+
+def mipnerf360_train_state(model: torch.nn.Module, seed: int,
+                           step: int) -> dict:
+    """A released-layout TrainState of the port's MipNerf360Model `model`:
+    {'params': {'params': flax tree}, 'step': step, 'opt_state': {}}, the
+    tree models/from_jax.py::convert_mipnerf360_params reads (a Dense
+    kernel [in, out], the transpose of the Linear weight; an embedding
+    table as it is)."""
+    rng = np.random.default_rng(seed)
+    tree: Dict[str, dict] = {}
+    for name, tensor in model.state_dict().items():
+        shape = tuple(tensor.shape)
+        if (m := _DENSE_RE.match(name)):
+            module, k, leaf = m.groups()
+            values = _values(rng, name, shape)
+            tree.setdefault(module, {}).setdefault(f"Dense_{k}", {})[
+                "kernel" if leaf == "weight" else "bias"] = (
+                values.T.copy() if leaf == "weight" else values)
+        elif name.count(".") == 1 and name.endswith(".weight"):
+            tree[name.split(".")[0]] = {"embedding": rng.normal(
+                0.0, 0.1, shape).astype(np.float32)}
+        else:
+            raise ValueError(f"no flax leaf for {name}")
+    return {"params": {"params": tree}, "step": step, "opt_state": {}}

@@ -1,4 +1,4 @@
-"""Read flax msgpack checkpoints without flax or msgpack.
+"""Read and write flax msgpack checkpoints without flax or msgpack.
 
 flax.serialization.msgpack_serialize writes a tree of maps with msgpack's
 str, bin, int, float, bool, nil and array values, and two extension types
@@ -8,6 +8,11 @@ read back as a 0-d array's item). msgpack arrays come back as lists, as
 flax's restore gives them. Ext 2 (a Python complex) and arrays that flax
 split into `__msgpack_chunked_array__` pieces (leaves above 1 GiB) are
 refused by name. bfloat16 arrays come back as float32, exactly.
+
+msgpack_serialize writes the bytes flax's msgpack_serialize writes for a
+tree of dicts (keys sorted, as flax's copy of the tree leaves them),
+lists, Python scalars, numpy arrays and numpy scalars, in msgpack's
+smallest encoding of each value; it refuses what the reader refuses.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Any, Tuple
 import numpy as np
 
 _CHECKPOINT_RE = re.compile(r"^checkpoint_(\d+)$")
+# flax splits array leaves above this many bytes into chunks.
+_MAX_LEAF_BYTES = 1 << 30
 
 
 class _Reader:
@@ -113,6 +120,108 @@ def msgpack_restore(data: bytes) -> Any:
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after the msgpack tree")
     return tree
+
+
+def _header(out: bytearray, n: int, small: int, small_limit: int,
+            codes: tuple) -> None:
+    """A length header: `small | n` below `small_limit`, else the first of
+    `codes` (8-, 16-, 32-bit length; None where msgpack has no such form)
+    whose length field holds n."""
+    if n < small_limit:
+        out.append(small | n)
+        return
+    for code, fmt in zip(codes, (">B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} is too large")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) \
+        if v > 0 else ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for code, fmt in forms:
+        bits = 8 * struct.calcsize(fmt)
+        if (v < 1 << bits) if v > 0 else (v >= -(1 << (bits - 1))):
+            out.append(code)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"integer {v} does not fit msgpack's 64 bits")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixed:
+        out.append(fixed[len(payload)])
+    else:
+        _header(out, len(payload), 0, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """flax's (shape, dtype name, C-order bytes), packed as msgpack."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured arrays have no flax "
+                         "msgpack form")
+    out = bytearray()
+    _pack([[int(d) for d in arr.shape], arr.dtype.name, arr.tobytes("C")],
+          out)
+    return bytes(out)
+
+
+def _pack(value: Any, out: bytearray) -> None:
+    # Exact types, as flax packs with msgpack's strict_types: a subclass
+    # (np.float64 of float, np.bool_) goes through flax's ext types.
+    kind = type(value)
+    if value is None:
+        out.append(0xC0)
+    elif kind is bool:
+        out.append(0xC3 if value else 0xC2)
+    elif kind is int:
+        _pack_int(out, value)
+    elif kind is float:
+        out.append(0xCB)
+        out += struct.pack(">d", value)
+    elif kind is str:
+        data = value.encode("utf-8")
+        _header(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif kind is bytes:
+        _header(out, len(value), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += value
+    elif kind is list:
+        _header(out, len(value), 0x90, 16, (None, 0xDC, 0xDD))
+        for item in value:
+            _pack(item, out)
+    elif kind is dict:
+        # Keys sorted: flax copies the tree with jax.tree_util first, which
+        # sorts every dict's keys.
+        _header(out, len(value), 0x80, 16, (None, 0xDE, 0xDF))
+        for key in sorted(value):
+            _pack(key, out)
+            _pack(value[key], out)
+    elif isinstance(value, np.ndarray):
+        if value.nbytes > _MAX_LEAF_BYTES:
+            raise ValueError("array leaves above 1 GiB (which flax splits "
+                             "into __msgpack_chunked_array__ pieces) are not "
+                             "supported")
+        _pack_ext(out, 1, _ndarray_payload(value))
+    elif isinstance(value, np.generic):
+        _pack_ext(out, 3, _ndarray_payload(np.asarray(value)))
+    else:
+        raise TypeError(f"{kind.__name__} has no flax msgpack form")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """The bytes flax.serialization.msgpack_serialize writes for `tree`."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
 
 
 def checkpoint_file(path: str) -> str:

@@ -119,6 +119,21 @@ def test_lpips_random_init_matches_jax():
         np.testing.assert_allclose(float(ours(a, b)), want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("size", [(16, 20), (6, 40), (30, 30), (31, 33)])
+def test_lpips_on_images_below_alexnets_windows_matches_jax(size):
+    """Images too small for a pooling window or a kernel leave a feature
+    map empty: NaN, as the JAX package's mean over it; one size up the
+    maps hold a pixel and the distances agree."""
+    rs = np.random.RandomState(1)
+    a, b = (rs.rand(*size, 3).astype(np.float32) for _ in range(2))
+    ours, theirs = tlpips.LPIPS.random_init(0), jlpips.LPIPS.random_init(0)
+    want, got = float(theirs(a, b)), float(ours(a, b))
+    if np.isnan(want):
+        assert np.isnan(got)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_lpips_from_official_state_dict(tmp_path):
     # tests/test_drivers_yaml.py::test_lpips_torch_layout_conversion's
     # official key layout, through both packages' converters.
