@@ -2,6 +2,14 @@
 """Smoke run of the PyTorch + CUDA port (nerf_hugs_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --transient NAME [--log PATH]
+
+The second form trains one of the JAX package's distractor runs
+(TRANSIENT_RUNS, NAME one of hanerf, nerfw_strongreg, base, nerfw: 3000
+fp32 steps of a distractor_1024_glo4 gin on the quality tool's
+distractor scene, about 40 minutes on an H100), writes the tool's whole
+output to PATH and gates its held-out quality against JAX's; the first
+never runs them.
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. device: require CUDA, print the card's name and power limit, pin fp32;
@@ -294,7 +302,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      nerfacto eval through hashgrid_fwd and the Mip-NeRF 360 eval through
      no kernel, both pairs in PAPER_COMPARISON.{md,json}; printed: each
      pair's conversion and eval seconds and peak device memory.
-The captures of phases 5-22 are written by processes of this script
+  23. the NeRF-W collapse diagnosis on phase 14e's checkpoint of
+     distractor_1024_glo4_nerfw: `python -m
+     nerf_hugs_torch.tools.diagnose_nerfw_collapse --views 1` under the
+     tool's bindings (the quality tool's distractor scene at factor 2), in
+     a process of this script (`--diagnose`) that keeps the view's numbers
+     at full precision: one view line that parses, every number finite,
+     static_acc in [0, 1], beta_mean at least beta_min, the printed line
+     the record's, and its static-only PSNR within 1e-4 dB of the PSNR
+     (float64) of the same train view rendered here through the eval
+     path; printed: the line, both PSNRs and the phase's seconds.
+The captures of phases 5-23 are written by processes of this script
 (`--captures ROOT GROUP`) started after phases 1-4, whose timings make
 the kernels line, one a capture group: the kubric scene, the distractor
 and the phototourism captures beside phase 5, the llff and blender
@@ -3052,6 +3070,269 @@ def quality_phase(tmp: str) -> list:
     return readings
 
 
+# The transient methods' held-out quality (`python3 chip_smoke.py
+# --transient NAME`, one run a call; the default run trains none of them:
+# each takes about 40 minutes). Each run is a command of the JAX package's
+# distractor queue (its script and run name), the tool's arguments as that
+# command gives them, JAX's held-out PSNR and SSIM and localization ratio
+# on the same scene at the same steps (PARITY.md:346-395; targets taken on
+# a TPU), the floor of the port's localization ratio, and whether the run
+# is gated: the shipped NeRF-W run is recorded beside JAX's collapse.
+@dataclasses.dataclass(frozen=True)
+class TransientRun:
+    script: str
+    run: str
+    args: tuple
+    psnr: float
+    ssim: float
+    ratio: float = None
+    floor: float = None
+    gated: bool = True
+
+
+_DISTRACTOR = "configs/mipnerf360/distractor_1024_glo4_{}.gin"
+_STEPS = ("--steps", "3000")
+_BINDINGS = ("--binding", "Config.factor = 2", "--binding",
+             "Model.remat_mlp = True")
+TRANSIENT_RUNS = {
+    "hanerf": TransientRun(
+        "tools/tpu_queue_r4_long.sh", "hanerf_flagship_L",
+        ("--config", _DISTRACTOR.format("hanerf")) + _STEPS + _BINDINGS,
+        32.95, 0.9920, 4157.0, 10.0),
+    "nerfw_strongreg": TransientRun(
+        "tools/tpu_queue_r5i.sh", "nerfw_strongreg",
+        ("--config", _DISTRACTOR.format("nerfw")) + _STEPS + _BINDINGS
+        + ("--binding", "Config.nerfw_density_loss_mult = 0.3"),
+        34.05, 0.9874, 13.45, 3.0),
+    "base": TransientRun(
+        "tools/tpu_queue_r4_long.sh", "base_flagship_L",
+        ("--config", _DISTRACTOR.format("base")) + _STEPS
+        + ("--distractor",) + _BINDINGS, 23.25, 0.8870),
+    "nerfw": TransientRun(
+        "tools/tpu_queue_r4_long.sh", "nerfw_flagship_L",
+        ("--config", _DISTRACTOR.format("nerfw")) + _STEPS + _BINDINGS,
+        0.47, 0.0178, 1.67, gated=False),
+}
+# Remat only trades memory (recompute the MLPs' activations in the
+# backward pass): a train step with and without it leaves bit-equal
+# parameters (tests/test_torch_port_transient_quality.py), and the fp32
+# runs fit the card without it, about 30% faster.
+TRANSIENT_DROPPED = ("--binding", "Model.remat_mlp = True")
+TRANSIENT_TIMEOUT_S = 3300
+QUALITY_LOCALIZATION = re.compile(
+    r"^LOCALIZATION config=\S+ signal=(\S+) inside_outside_ratio=(\S+) "
+    r"per_image=\[(.*)\]$", re.M)
+
+
+def transient_args(run: TransientRun) -> list:
+    """The run's tool arguments on the card: JAX's without remat."""
+    args = list(run.args)
+    i = next(i for i in range(len(args))
+             if tuple(args[i:i + 2]) == TRANSIENT_DROPPED)
+    return args[:i] + args[i + 2:]
+
+
+def transient_main(argv: list) -> None:
+    """`chip_smoke.py --transient NAME [--log PATH]`: one run of
+    TRANSIENT_RUNS through phase 20's `--quality` child on the card (the
+    tool's whole output written to PATH), then, for NeRF-W, the collapse
+    diagnosis of its checkpoint on 2 train views; prints the in-train eval
+    curve, RESULT, LOCALIZATION, steps/s, peak memory and wall, and gates
+    the run: held-out PSNR and SSIM at least JAX's less phase 20's margins,
+    the localization ratio above its floor, no kernel launched. Prints one
+    `TRANSIENT {json}` line last."""
+    if (len(argv) not in (1, 3) or argv[0] not in TRANSIENT_RUNS
+            or argv[1:2] not in ([], ["--log"])):
+        fail(f"usage: chip_smoke.py --transient "
+             f"{{{','.join(TRANSIENT_RUNS)}}} [--log PATH]")
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    name, run = argv[0], TRANSIENT_RUNS[argv[0]]
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    config = run.args[run.args.index("--config") + 1]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_dir = os.path.join(tmp, name)
+        log_path = (os.path.abspath(argv[2]) if len(argv) == 3
+                    else os.path.join(tmp, "transient.log"))
+        os.makedirs(os.path.dirname(log_path), exist_ok=True)
+        t0 = time.time()
+        with open(log_path, "w") as log:
+            try:
+                rc = subprocess.run(
+                    [sys.executable, __file__, "--quality", "-"]
+                    + transient_args(run)
+                    + ["--save-dir", save_dir, "--device", "cuda"],
+                    cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                    timeout=TRANSIENT_TIMEOUT_S).returncode
+            except subprocess.TimeoutExpired:
+                rc = "killed at timeout"
+        wall = time.time() - t0
+        with open(log_path) as f:
+            out = f.read()
+        check(rc == 0, f"transient {name}: exited with {rc}:\n"
+                       f"{out[-4000:]}")
+        diagnosis = []
+        if "nerfw" in config:
+            t1 = time.time()
+            ((rc, diag),) = launch_ranks(
+                [__file__, "--diagnose", "--save-dir", save_dir, "--config",
+                 config, "--views", "2", "--device", "cuda"], None,
+                timeout=DIAGNOSE_TIMEOUT_S)
+            check(rc == 0, f"transient {name}: the diagnosis exited with "
+                           f"{rc}:\n{diag[-4000:]}")
+            diagnosis = DIAGNOSE_LINE.findall(diag)
+            for line in re.findall(r"^view \d+: .*$", diag, re.M):
+                print(f"transient ({name}) diagnosis: {line}", flush=True)
+            print(f"transient ({name}): diagnosis in "
+                  f"{time.time() - t1:.1f} s", flush=True)
+    result = QUALITY_RESULT.search(out)
+    timing = QUALITY_TIMING.search(out)
+    loc = QUALITY_LOCALIZATION.search(out)
+    child = re.search(r"^QUALITY_CHILD (.*)$", out, re.M)
+    check(result is not None and timing is not None and child is not None
+          and (loc is not None) == (run.ratio is not None),
+          f"transient {name}: a RESULT, TIMING, LOCALIZATION or "
+          f"QUALITY_CHILD line is missing:\n{out[-4000:]}")
+    child = json.loads(child.group(1))
+    curve = [(int(s), float(p), float(q)) for s, p, q in re.findall(
+        r"\[train\] (\d+): eval psnr=(\S+) ssim=(\S+)", out)]
+    psnr, ssim = float(result.group(3)), float(result.group(4))
+    per_image = [float(x) for x in result.group(5).split(",")]
+    rate, train_wall, peak = (float(x) for x in timing.groups())
+    ratio = float(loc.group(2)) if loc else None
+    steps = int(result.group(2))
+    print(f"transient ({name}): {' '.join(transient_args(run))}; JAX's "
+          f"command {run.script} {run.run}", flush=True)
+    print(f"transient ({name}, {steps} steps): in-train eval (step, psnr, "
+          f"ssim) {curve}", flush=True)
+    print(f"transient ({name}): {result.group(0)}", flush=True)
+    if loc:
+        print(f"transient ({name}): {loc.group(0)}", flush=True)
+    gate = (f"gate {run.psnr - QUALITY_PSNR_MARGIN:.2f} / "
+            f"{run.ssim - QUALITY_SSIM_MARGIN:.4f}"
+            + (f", localization above {run.floor}" if run.floor else "")
+            if run.gated else "recorded, not gated")
+    print(f"transient ({name}): held-out PSNR {psnr}, SSIM {ssim} (JAX "
+          f"{run.psnr} / {run.ssim}, {gate}); localization {ratio} (JAX "
+          f"{run.ratio}); {rate} steps/s after the first step, train wall "
+          f"{train_wall} s, peak device memory {peak} GiB, {wall:.1f} s "
+          f"with start-up and scoring; launches over the run "
+          f"{child['totals']}", flush=True)
+    check(child["steps"] == steps, f"transient {name}: {child['steps']} "
+                                   f"train steps counted, not {steps}")
+    check(all(v == 0 for v in child["totals"].values()),
+          f"transient {name}: a hash-grid or fused-MLP kernel launched: "
+          f"{child['totals']}")
+    check(all(math.isfinite(v) for v in [psnr, ssim] + per_image
+              + ([ratio] if loc else [])),
+          f"transient {name}: a non-finite score")
+    if run.gated:
+        check(psnr >= run.psnr - QUALITY_PSNR_MARGIN,
+              f"transient {name}: held-out PSNR {psnr} below JAX's "
+              f"{run.psnr} less {QUALITY_PSNR_MARGIN} dB")
+        check(ssim >= run.ssim - QUALITY_SSIM_MARGIN,
+              f"transient {name}: held-out SSIM {ssim} below JAX's "
+              f"{run.ssim} less {QUALITY_SSIM_MARGIN}")
+        check(run.floor is None or ratio > run.floor,
+              f"transient {name}: localization {ratio} not above "
+              f"{run.floor}")
+    print("TRANSIENT " + json.dumps({
+        "name": name, "steps": steps, "psnr": psnr, "ssim": ssim,
+        "per_image_psnr": per_image, "localization": ratio,
+        "steps_per_s": rate, "train_wall_s": train_wall, "peak_gib": peak,
+        "wall_s": wall, "curve": curve, "diagnosis": diagnosis,
+        "gated": run.gated}), flush=True)
+
+
+# Phase 23: the NeRF-W collapse diagnosis of phase 14e's checkpoint.
+DIAGNOSE_CONFIG = "configs/mipnerf360/distractor_1024_glo4_nerfw.gin"
+DIAGNOSE_LINE = re.compile(
+    r"^view (\d+): combined_psnr=(\S+) static_only_psnr=(\S+) "
+    r"static_acc=(\S+) combined_static_part_mean=(\S+) "
+    r"transient_part_mean=(\S+) beta_mean=(\S+) \(beta_min=(\S+)\)$", re.M)
+DIAGNOSE_PSNR_TOL = 1e-4      # dB, the tool's static-only PSNR against ours
+DIAGNOSE_TIMEOUT_S = 300
+
+
+def diagnose_main(argv: list) -> None:
+    """`chip_smoke.py --diagnose ARGS...`: the main of
+    `python -m nerf_hugs_torch.tools.diagnose_nerfw_collapse ARGS` in this
+    process, every view's numbers kept at full precision; prints one
+    `DIAGNOSE_CHILD {json}` line last."""
+    sys.path.insert(0, HERE)
+    from nerf_hugs_torch.tools import diagnose_nerfw_collapse as tool
+    views, diagnose_view = [], tool.diagnose_view
+
+    def kept(*args, **kwargs):
+        views.append(diagnose_view(*args, **kwargs))
+        return views[-1]
+
+    tool.diagnose_view = kept
+    tool.main(argv)
+    print("DIAGNOSE_CHILD " + json.dumps(views), flush=True)
+
+
+def diagnose_phase(torch, save_dir: str, dev) -> None:
+    """Phase 23 (see the module's docstring)."""
+    import numpy as np
+
+    from nerf_hugs_torch.data import load_dataset
+    from nerf_hugs_torch.models import construct_model
+    from nerf_hugs_torch.tools import diagnose_nerfw_collapse as tool
+    from nerf_hugs_torch.train import checkpoints
+    from nerf_hugs_torch.train.render_image import render_image
+    t0 = time.time()
+    ((rc, out),) = launch_ranks(
+        [__file__, "--diagnose", "--save-dir", save_dir, "--config",
+         DIAGNOSE_CONFIG, "--views", "1", "--device", "cuda"], None,
+        timeout=DIAGNOSE_TIMEOUT_S)
+    tool_s = time.time() - t0
+    check(rc == 0, f"diagnose: exited with {rc}:\n{out[-4000:]}")
+    lines = DIAGNOSE_LINE.findall(out)
+    child = re.search(r"^DIAGNOSE_CHILD (.*)$", out, re.M)
+    check(len(lines) == 1 and child is not None,
+          f"diagnose: not one view line and the child's record:\n"
+          f"{out[-4000:]}")
+    printed = [float(x) for x in lines[0][1:]]
+    (view,) = json.loads(child.group(1))
+    beta_min = printed[-1]
+    check(all(math.isfinite(v) for v in printed + list(view.values())),
+          f"diagnose: a non-finite number: {lines[0]}")
+    check(re.search(r"^" + re.escape(tool.view_line(0, view, beta_min))
+                    + "$", out, re.M) is not None,
+          f"diagnose: the printed line is not the record's: {lines[0]}")
+    check(0.0 <= view["static_acc"] <= 1.0,
+          f"diagnose: static_acc {view['static_acc']} outside [0, 1]")
+    check(view["beta_mean"] >= beta_min,
+          f"diagnose: beta_mean {view['beta_mean']} below beta_min "
+          f"{beta_min}")
+    # The same train view through the eval path, rendered here.
+    config = tool.load_config(tool.parse_args(
+        ["--save-dir", save_dir, "--config", DIAGNOSE_CONFIG]))
+    model = construct_model(config, dev, torch.Generator().manual_seed(0))
+    step = checkpoints.restore_params(save_dir, model)
+    batch = load_dataset("train", "", config,
+                         is_training=True).generate_ray_batch(0)
+    rgb = render_image(model, batch.rays, 1.0, config, dev)["rgb"]
+    err = (np.clip(rgb.astype(np.float64), 0, 1)
+           - np.asarray(batch.rgb, np.float64)[..., :3]) ** 2
+    own = float(-10 * np.log10(err.mean()))
+    text = re.search(r"^view 0: .*$", out, re.M).group(0)
+    print(f"diagnose (distractor_1024_glo4_nerfw, phase 14e's step-{step} "
+          f"checkpoint): {text}; "
+          f"the eval path's PSNR of view 0 here {own:.6f} dB against the "
+          f"tool's {view['static_only_psnr']:.6f}; tool {tool_s:.1f} s, "
+          f"phase {time.time() - t0:.1f} s", flush=True)
+    check(abs(own - view["static_only_psnr"]) <= DIAGNOSE_PSNR_TOL,
+          f"diagnose: static-only PSNR {view['static_only_psnr']} against "
+          f"the eval path's {own} dB")
+
+
 SHIPPED_DIRS = ("nerfacto", "mipnerf360", "hugs")
 # The configs phase 21 shows refused, with the exception the port raises
 # and a part of its message: NeRF-W without the transient embedding (the
@@ -3685,6 +3966,12 @@ def main() -> None:
     if sys.argv[1:2] == ["--quality"]:
         quality_main(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--transient"]:
+        transient_main(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--diagnose"]:
+        diagnose_main(sys.argv[2:])
+        return
     if sys.argv[1:2] == ["--captures"]:
         write_captures(*sys.argv[2:4])
         return
@@ -3827,6 +4114,8 @@ def main() -> None:
         done("21")
         released_phase(torch, tmp, scene, dev)
         done("22")
+        diagnose_phase(torch, os.path.join(tmp, "exp", "mip_nerfw"), dev)
+        done("23")
     check_driven()
     accum_worst, accum_timings, accum_launches = accum_phase(torch, dev)
     check("jax" not in sys.modules, "jax was imported")

@@ -1,4 +1,5 @@
-"""The JAX package's initial nerfacto weights, drawn without JAX.
+"""The JAX package's initial nerfacto and Mip-NeRF 360 weights, drawn
+without JAX.
 
 train.py initializes every run from PRNGKey(20200823), whatever the
 config's seed (train.py:105-127): the key is folded with the host index 0
@@ -18,7 +19,9 @@ kubric_nerfacto_tpu from torch's draws at four seeds land at 21.8-33.6 dB
 held-out PSNR, from JAX's at four keys at 33.2-35.1), so the train
 driver starts nerfacto from these draws, and a run is the JAX run's twin
 up to the sample jitter, the backgrounds and the arithmetic. The batches
-are the same numpy draws in both packages.
+are the same numpy draws in both packages. Mip-NeRF 360 starts from them
+too: whether NeRF-W's transient branch absorbs the scene can hang on the
+draw as well (the distractor gins' held-out runs, PERF.md §2).
 """
 
 from __future__ import annotations
@@ -156,5 +159,29 @@ def init_nerfacto_(model: torch.nn.Module, root: Key = None) -> None:
             i = int(parts[-1][2:])
             p.copy_(he_uniform(param_key(root, parts[:-1] + [i + 1]),
                                tuple(p.shape), dev))
+        else:
+            raise ValueError(f"no JAX initializer for {name}")
+
+
+@torch.no_grad()
+def init_mipnerf360_(model: torch.nn.Module, root: Key = None) -> None:
+    """Overwrite a MipNerf360Model's parameters with the JAX model's
+    initial values under `root` (train.py's by default). Every flax module
+    of that model sits at the top (NerfMLP_0, PropMLP_0, ImplicitMask_0,
+    GloEmbed_0, TransientEmbed_0; nerf_hugs_tpu/models/mipnerf360.py:
+    60-79), each Dense_k its own module whose kernel is created first, and
+    nn.remat keeps the paths; the proposal levels call one PropMLP_0, so
+    its loop adds no parameters."""
+    root = train_py_root() if root is None else root
+    for name, p in model.named_parameters():
+        path = list(model.flax_path(name))
+        key = param_key(root, path[:-1] + [1])
+        if path[-1] == "embedding":
+            p.copy_(embed_normal(key, tuple(p.shape), p.device))
+        elif path[-1] == "bias":
+            p.zero_()
+        elif path[-1] == "kernel":
+            # he_uniform of the [in, out] kernel, transposed.
+            p.copy_(he_uniform(key, (p.shape[1], p.shape[0]), p.device).T)
         else:
             raise ValueError(f"no JAX initializer for {name}")

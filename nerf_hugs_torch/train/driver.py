@@ -289,6 +289,8 @@ def train(args, device) -> None:
         # nerfacto run's quality hangs on its initial draw by more than
         # the 1 dB the quality gate allows (models/jax_init.py).
         jax_init.init_nerfacto_(model)
+    elif config.model_type == "mipnerf360":
+        jax_init.init_mipnerf360_(model)
     # Every rank starts from rank 0's parameters (train.py's ranks would
     # each draw their own: ROADMAP, known faults in the reference).
     mesh.replicate(model)
