@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --transient NAME [--log PATH]
+    python3 chip_smoke.py --vanilla NAME [--log PATH]
 
 The second form trains one of the JAX package's distractor runs
 (TRANSIENT_RUNS, NAME one of hanerf, nerfw_strongreg, base, nerfw: 3000
 fp32 steps of a distractor_1024_glo4 gin on the quality tool's
 distractor scene, about 40 minutes on an H100), writes the tool's whole
-output to PATH and gates its held-out quality against JAX's; the first
-never runs them.
+output to PATH and gates its held-out quality against JAX's; the third
+trains one of VANILLA_RUNS (base, hanerf, base_distractor: 3000 fp32
+steps of kubric_nerf_base.yml or kubric_nerf_hanerf.yml on the tool's
+scene, the distractor scene for the last two) and records its held-out
+quality, which JAX has no target for. The first form never runs them.
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. device: require CUDA, print the card's name and power limit, pin fp32;
@@ -178,7 +182,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      8 steps of configs/nerfacto/kubric_nerf_base.yml, model section
      unchanged (64 + 64 samples, the fine pass over their 128-sample
      union, batch 4096, fp32), on phase 7's kubric scene with a profiler
-     window over steps 5-7, then an eval of 2 images; (c) 4 steps of kubric_nerf_hanerf.yml
+     window over steps 5-7, the model the train driver built on the card
+     holding init_vanilla_'s CPU draw of JAX's initial weights (bit for
+     bit, embeddings within 1e-6), then an eval of 2 images; (c) 4 steps of kubric_nerf_hanerf.yml
      on the same scene, and phototourism_nerf_nerfw.yml (128 + 128
      samples) on phase 12's capture, 4 train and 2 finetune steps, in
      which only appearance_embedding moves;
@@ -2233,14 +2239,66 @@ def vanilla_step_flops(cfg_path: str) -> float:
     return 2 * samples * (3 * macs - first * c.net_width)
 
 
+def initial_draw_check(torch, cfg_path: str, state: dict) -> None:
+    """Phase 15b: `state`, the parameters of the model the train driver
+    built on the card before its first step, equal init_vanilla_'s draw
+    on the CPU: bit for bit, the embeddings (erfinv) within 1e-6."""
+    from nerf_hugs_torch.models import construct_model, jax_init
+    from nerf_hugs_torch.train import driver
+    t0 = time.time()
+    model = construct_model(driver.load_config(cfg_path, "", ""), "cpu",
+                            torch.Generator().manual_seed(0))
+    # Two threads: the capture writers may hold the other cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        jax_init.init_vanilla_(model)
+    finally:
+        torch.set_num_threads(threads)
+    want = model.state_dict()
+    check(set(state) == set(want), f"the driver's vanilla model has "
+                                   f"{sorted(state)}, not {sorted(want)}")
+    got = {k: v.cpu() for k, v in state.items()}
+    embeds = [k for k in want if k.endswith("_embedding.weight")]
+    unequal = [k for k in want
+               if k not in embeds and not torch.equal(got[k], want[k])]
+    err = max((float((got[k] - want[k]).abs().max()) for k in embeds),
+              default=0.0)
+    print(f"vanilla kubric_nerf_base: the train driver's initial "
+          f"parameters on the card ({len(want)} tensors, "
+          f"{sum(v.numel() for v in want.values())} values) against "
+          f"init_vanilla_ on the CPU: {len(unequal)} tensors differ, "
+          f"{len(embeds)} embeddings within {err:.1e} (bound 1e-06); the "
+          f"CPU draw and the comparison in {time.time() - t0:.1f} s",
+          flush=True)
+    check(not unequal, f"the card's vanilla draw differs from the CPU's "
+                       f"in {unequal}")
+    check(err <= 1e-6, f"the card's vanilla embeddings differ by {err}")
+
+
 def vanilla_phase(torch, tmp: str, scene: str, phototourism: str, dev):
     """Phase 15: vanilla NeRF (15a the toy model card vs CPU; 15b-c the
     shipped yamls at full width through the drivers)."""
+    from nerf_hugs_torch.train import driver
     vanilla_small_phase(torch, tmp, dev)
     exp = lambda name: os.path.join(tmp, "exp", f"nerf_{name}")
     base = shipped_yaml(tmp, "kubric_nerf_base")
-    _, _, reading = mip_train(torch, base, scene, exp("base"),
-                              "vanilla kubric_nerf_base", 8, profile=True)
+    run_stage, drawn = driver.run_stage, {}
+
+    def first_state(stage, model, *args):
+        if not drawn:
+            drawn.update({k: v.detach().clone()
+                          for k, v in model.state_dict().items()})
+        return run_stage(stage, model, *args)
+
+    driver.run_stage = first_state
+    try:
+        _, _, reading = mip_train(torch, base, scene, exp("base"),
+                                  "vanilla kubric_nerf_base", 8,
+                                  profile=True)
+    finally:
+        driver.run_stage = run_stage
+    initial_draw_check(torch, base, drawn)
     eval_phase(torch, base, scene, exp("base"), "vanilla kubric_nerf_base",
                NOT_ANY, score=False)
     flops = vanilla_step_flops(base)
@@ -3076,8 +3134,9 @@ def quality_phase(tmp: str) -> list:
 # distractor queue (its script and run name), the tool's arguments as that
 # command gives them, JAX's held-out PSNR and SSIM and localization ratio
 # on the same scene at the same steps (PARITY.md:346-395; targets taken on
-# a TPU), the floor of the port's localization ratio, and whether the run
-# is gated: the shipped NeRF-W run is recorded beside JAX's collapse.
+# a TPU), the floor of the port's localization ratio, whether the run is
+# gated (the shipped NeRF-W run is recorded beside JAX's collapse) and
+# whether the tool prints a LOCALIZATION line for it.
 @dataclasses.dataclass(frozen=True)
 class TransientRun:
     script: str
@@ -3088,6 +3147,7 @@ class TransientRun:
     ratio: float = None
     floor: float = None
     gated: bool = True
+    localizes: bool = False
 
 
 _DISTRACTOR = "configs/mipnerf360/distractor_1024_glo4_{}.gin"
@@ -3098,12 +3158,12 @@ TRANSIENT_RUNS = {
     "hanerf": TransientRun(
         "tools/tpu_queue_r4_long.sh", "hanerf_flagship_L",
         ("--config", _DISTRACTOR.format("hanerf")) + _STEPS + _BINDINGS,
-        32.95, 0.9920, 4157.0, 10.0),
+        32.95, 0.9920, 4157.0, 10.0, localizes=True),
     "nerfw_strongreg": TransientRun(
         "tools/tpu_queue_r5i.sh", "nerfw_strongreg",
         ("--config", _DISTRACTOR.format("nerfw")) + _STEPS + _BINDINGS
         + ("--binding", "Config.nerfw_density_loss_mult = 0.3"),
-        34.05, 0.9874, 13.45, 3.0),
+        34.05, 0.9874, 13.45, 3.0, localizes=True),
     "base": TransientRun(
         "tools/tpu_queue_r4_long.sh", "base_flagship_L",
         ("--config", _DISTRACTOR.format("base")) + _STEPS
@@ -3111,7 +3171,7 @@ TRANSIENT_RUNS = {
     "nerfw": TransientRun(
         "tools/tpu_queue_r4_long.sh", "nerfw_flagship_L",
         ("--config", _DISTRACTOR.format("nerfw")) + _STEPS + _BINDINGS,
-        0.47, 0.0178, 1.67, gated=False),
+        0.47, 0.0178, 1.67, gated=False, localizes=True),
 }
 # Remat only trades memory (recompute the MLPs' activations in the
 # backward pass): a train step with and without it leaves bit-equal
@@ -3124,32 +3184,57 @@ QUALITY_LOCALIZATION = re.compile(
     r"per_image=\[(.*)\]$", re.M)
 
 
+# Vanilla NeRF's held-out quality (`python3 chip_smoke.py --vanilla NAME`,
+# never in the default run): 3000 fp32 steps of a shipped vanilla yaml on
+# the quality tool's scene, from JAX's initial weights
+# (models/jax_init.py::init_vanilla_). JAX has no held-out vanilla target,
+# so each run is recorded, not gated. The run names no JAX queue command.
+_VANILLA = "configs/nerfacto/kubric_nerf_{}.yml"
+VANILLA_RUNS = {
+    "base": TransientRun(
+        None, None, ("--config", _VANILLA.format("base")) + _STEPS, None,
+        None, gated=False),
+    "hanerf": TransientRun(
+        None, None, ("--config", _VANILLA.format("hanerf")) + _STEPS, None,
+        None, gated=False, localizes=True),
+    "base_distractor": TransientRun(
+        None, None, ("--config", _VANILLA.format("base")) + _STEPS
+        + ("--distractor",), None, None, gated=False),
+}
+VANILLA_TIMEOUT_S = 1500
+
+
 def transient_args(run: TransientRun) -> list:
     """The run's tool arguments on the card: JAX's without remat."""
     args = list(run.args)
-    i = next(i for i in range(len(args))
-             if tuple(args[i:i + 2]) == TRANSIENT_DROPPED)
-    return args[:i] + args[i + 2:]
+    for i in range(len(args) - 1):
+        if tuple(args[i:i + 2]) == TRANSIENT_DROPPED:
+            return args[:i] + args[i + 2:]
+    return args
 
 
-def transient_main(argv: list) -> None:
-    """`chip_smoke.py --transient NAME [--log PATH]`: one run of
-    TRANSIENT_RUNS through phase 20's `--quality` child on the card (the
-    tool's whole output written to PATH), then, for NeRF-W, the collapse
-    diagnosis of its checkpoint on 2 train views; prints the in-train eval
-    curve, RESULT, LOCALIZATION, steps/s, peak memory and wall, and gates
-    the run: held-out PSNR and SSIM at least JAX's less phase 20's margins,
-    the localization ratio above its floor, no kernel launched. Prints one
-    `TRANSIENT {json}` line last."""
-    if (len(argv) not in (1, 3) or argv[0] not in TRANSIENT_RUNS
+def held_out_main(kind: str, argv: list) -> None:
+    """`chip_smoke.py --transient|--vanilla NAME [--log PATH]`: one run of
+    TRANSIENT_RUNS or VANILLA_RUNS (`kind`) through phase 20's `--quality`
+    child on the card (the tool's whole output written to PATH), then, for
+    a NeRF-W gin, the collapse diagnosis of its checkpoint on 2 train
+    views; prints the in-train eval curve, RESULT, LOCALIZATION, steps/s,
+    peak memory and wall, and fails on a failed run, a missing line, a
+    non-finite score or any kernel launched; a gated run also fails with
+    held-out PSNR or SSIM below JAX's less phase 20's margins or its
+    localization ratio at or below its floor. Prints one `TRANSIENT {json}`
+    or `VANILLA {json}` line last."""
+    runs, timeout_s = {"transient": (TRANSIENT_RUNS, TRANSIENT_TIMEOUT_S),
+                       "vanilla": (VANILLA_RUNS, VANILLA_TIMEOUT_S)}[kind]
+    if (len(argv) not in (1, 3) or argv[0] not in runs
             or argv[1:2] not in ([], ["--log"])):
-        fail(f"usage: chip_smoke.py --transient "
-             f"{{{','.join(TRANSIENT_RUNS)}}} [--log PATH]")
+        fail(f"usage: chip_smoke.py --{kind} {{{','.join(runs)}}} "
+             f"[--log PATH]")
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    name, run = argv[0], TRANSIENT_RUNS[argv[0]]
+    name, run = argv[0], runs[argv[0]]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3158,7 +3243,7 @@ def transient_main(argv: list) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         save_dir = os.path.join(tmp, name)
         log_path = (os.path.abspath(argv[2]) if len(argv) == 3
-                    else os.path.join(tmp, "transient.log"))
+                    else os.path.join(tmp, f"{kind}.log"))
         os.makedirs(os.path.dirname(log_path), exist_ok=True)
         t0 = time.time()
         with open(log_path, "w") as log:
@@ -3168,35 +3253,35 @@ def transient_main(argv: list) -> None:
                     + transient_args(run)
                     + ["--save-dir", save_dir, "--device", "cuda"],
                     cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
-                    timeout=TRANSIENT_TIMEOUT_S).returncode
+                    timeout=timeout_s).returncode
             except subprocess.TimeoutExpired:
                 rc = "killed at timeout"
         wall = time.time() - t0
         with open(log_path) as f:
             out = f.read()
-        check(rc == 0, f"transient {name}: exited with {rc}:\n"
+        check(rc == 0, f"{kind} {name}: exited with {rc}:\n"
                        f"{out[-4000:]}")
         diagnosis = []
-        if "nerfw" in config:
+        if config.endswith(".gin") and "nerfw" in config:
             t1 = time.time()
             ((rc, diag),) = launch_ranks(
                 [__file__, "--diagnose", "--save-dir", save_dir, "--config",
                  config, "--views", "2", "--device", "cuda"], None,
                 timeout=DIAGNOSE_TIMEOUT_S)
-            check(rc == 0, f"transient {name}: the diagnosis exited with "
+            check(rc == 0, f"{kind} {name}: the diagnosis exited with "
                            f"{rc}:\n{diag[-4000:]}")
             diagnosis = DIAGNOSE_LINE.findall(diag)
             for line in re.findall(r"^view \d+: .*$", diag, re.M):
-                print(f"transient ({name}) diagnosis: {line}", flush=True)
-            print(f"transient ({name}): diagnosis in "
+                print(f"{kind} ({name}) diagnosis: {line}", flush=True)
+            print(f"{kind} ({name}): diagnosis in "
                   f"{time.time() - t1:.1f} s", flush=True)
     result = QUALITY_RESULT.search(out)
     timing = QUALITY_TIMING.search(out)
     loc = QUALITY_LOCALIZATION.search(out)
     child = re.search(r"^QUALITY_CHILD (.*)$", out, re.M)
     check(result is not None and timing is not None and child is not None
-          and (loc is not None) == (run.ratio is not None),
-          f"transient {name}: a RESULT, TIMING, LOCALIZATION or "
+          and (loc is not None) == run.localizes,
+          f"{kind} {name}: a RESULT, TIMING, LOCALIZATION or "
           f"QUALITY_CHILD line is missing:\n{out[-4000:]}")
     child = json.loads(child.group(1))
     curve = [(int(s), float(p), float(q)) for s, p, q in re.findall(
@@ -3206,42 +3291,45 @@ def transient_main(argv: list) -> None:
     rate, train_wall, peak = (float(x) for x in timing.groups())
     ratio = float(loc.group(2)) if loc else None
     steps = int(result.group(2))
-    print(f"transient ({name}): {' '.join(transient_args(run))}; JAX's "
-          f"command {run.script} {run.run}", flush=True)
-    print(f"transient ({name}, {steps} steps): in-train eval (step, psnr, "
+    print(f"{kind} ({name}): {' '.join(transient_args(run))}"
+          + (f"; JAX's command {run.script} {run.run}" if run.script
+             else ""), flush=True)
+    print(f"{kind} ({name}, {steps} steps): in-train eval (step, psnr, "
           f"ssim) {curve}", flush=True)
-    print(f"transient ({name}): {result.group(0)}", flush=True)
+    print(f"{kind} ({name}): {result.group(0)}", flush=True)
     if loc:
-        print(f"transient ({name}): {loc.group(0)}", flush=True)
+        print(f"{kind} ({name}): {loc.group(0)}", flush=True)
     gate = (f"gate {run.psnr - QUALITY_PSNR_MARGIN:.2f} / "
             f"{run.ssim - QUALITY_SSIM_MARGIN:.4f}"
             + (f", localization above {run.floor}" if run.floor else "")
             if run.gated else "recorded, not gated")
-    print(f"transient ({name}): held-out PSNR {psnr}, SSIM {ssim} (JAX "
-          f"{run.psnr} / {run.ssim}, {gate}); localization {ratio} (JAX "
-          f"{run.ratio}); {rate} steps/s after the first step, train wall "
+    target = (f"JAX {run.psnr} / {run.ssim}" if run.psnr is not None
+              else "no JAX target")
+    print(f"{kind} ({name}): held-out PSNR {psnr}, SSIM {ssim} ({target}, "
+          f"{gate}); localization {ratio} (JAX {run.ratio}); {rate} "
+          f"steps/s after the first step, train wall "
           f"{train_wall} s, peak device memory {peak} GiB, {wall:.1f} s "
           f"with start-up and scoring; launches over the run "
           f"{child['totals']}", flush=True)
-    check(child["steps"] == steps, f"transient {name}: {child['steps']} "
+    check(child["steps"] == steps, f"{kind} {name}: {child['steps']} "
                                    f"train steps counted, not {steps}")
     check(all(v == 0 for v in child["totals"].values()),
-          f"transient {name}: a hash-grid or fused-MLP kernel launched: "
+          f"{kind} {name}: a hash-grid or fused-MLP kernel launched: "
           f"{child['totals']}")
     check(all(math.isfinite(v) for v in [psnr, ssim] + per_image
               + ([ratio] if loc else [])),
-          f"transient {name}: a non-finite score")
+          f"{kind} {name}: a non-finite score")
     if run.gated:
         check(psnr >= run.psnr - QUALITY_PSNR_MARGIN,
-              f"transient {name}: held-out PSNR {psnr} below JAX's "
+              f"{kind} {name}: held-out PSNR {psnr} below JAX's "
               f"{run.psnr} less {QUALITY_PSNR_MARGIN} dB")
         check(ssim >= run.ssim - QUALITY_SSIM_MARGIN,
-              f"transient {name}: held-out SSIM {ssim} below JAX's "
+              f"{kind} {name}: held-out SSIM {ssim} below JAX's "
               f"{run.ssim} less {QUALITY_SSIM_MARGIN}")
         check(run.floor is None or ratio > run.floor,
-              f"transient {name}: localization {ratio} not above "
+              f"{kind} {name}: localization {ratio} not above "
               f"{run.floor}")
-    print("TRANSIENT " + json.dumps({
+    print(f"{kind.upper()} " + json.dumps({
         "name": name, "steps": steps, "psnr": psnr, "ssim": ssim,
         "per_image_psnr": per_image, "localization": ratio,
         "steps_per_s": rate, "train_wall_s": train_wall, "peak_gib": peak,
@@ -3966,8 +4054,8 @@ def main() -> None:
     if sys.argv[1:2] == ["--quality"]:
         quality_main(sys.argv[2:])
         return
-    if sys.argv[1:2] == ["--transient"]:
-        transient_main(sys.argv[2:])
+    if sys.argv[1:2] in (["--transient"], ["--vanilla"]):
+        held_out_main(sys.argv[1][2:], sys.argv[2:])
         return
     if sys.argv[1:2] == ["--diagnose"]:
         diagnose_main(sys.argv[2:])

@@ -148,6 +148,19 @@ def _convert_dense_modules(flax_params: Dict[str, Any], mlps, embeds
     return state
 
 
+def dense_flax_path(name: str) -> tuple:
+    """The flax path of a parameter of a model that _convert_dense_modules
+    fills, its rule read backwards ('NerfMLP_0.Dense_0.weight' ->
+    ('NerfMLP_0', 'Dense_0', 'kernel'), 'coarse.Dense_3.bias' ->
+    ('coarse', 'Dense_3', 'bias'), 'GloEmbed_0.weight' -> ('GloEmbed_0',
+    'embedding'))."""
+    parts = name.split(".")
+    if len(parts) == 2:
+        return (parts[0], "embedding")
+    return (parts[0], parts[1],
+            "kernel" if parts[2] == "weight" else parts[2])
+
+
 def convert_mipnerf360_params(flax_params: Dict[str, Any]
                               ) -> Dict[str, torch.Tensor]:
     """flax params (nested dicts of numpy arrays, with or without the top

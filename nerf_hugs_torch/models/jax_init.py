@@ -1,5 +1,5 @@
-"""The JAX package's initial nerfacto and Mip-NeRF 360 weights, drawn
-without JAX.
+"""The JAX package's initial nerfacto, vanilla NeRF and Mip-NeRF 360
+weights, drawn without JAX.
 
 train.py initializes every run from PRNGKey(20200823), whatever the
 config's seed (train.py:105-127): the key is folded with the host index 0
@@ -21,7 +21,10 @@ driver starts nerfacto from these draws, and a run is the JAX run's twin
 up to the sample jitter, the backgrounds and the arithmetic. The batches
 are the same numpy draws in both packages. Mip-NeRF 360 starts from them
 too: whether NeRF-W's transient branch absorbs the scene can hang on the
-draw as well (the distractor gins' held-out runs, PERF.md §2).
+draw as well (the distractor gins' held-out runs, PERF.md §2); vanilla
+NeRF starts from them as the JAX run does. init_model_ picks the
+backbone's function; the quality tool's legacy mode hands it JAX's
+PRNGKey(0), the key JAX's tool gives setup_model.
 """
 
 from __future__ import annotations
@@ -164,15 +167,12 @@ def init_nerfacto_(model: torch.nn.Module, root: Key = None) -> None:
 
 
 @torch.no_grad()
-def init_mipnerf360_(model: torch.nn.Module, root: Key = None) -> None:
-    """Overwrite a MipNerf360Model's parameters with the JAX model's
-    initial values under `root` (train.py's by default). Every flax module
-    of that model sits at the top (NerfMLP_0, PropMLP_0, ImplicitMask_0,
-    GloEmbed_0, TransientEmbed_0; nerf_hugs_tpu/models/mipnerf360.py:
-    60-79), each Dense_k its own module whose kernel is created first, and
-    nn.remat keeps the paths; the proposal levels call one PropMLP_0, so
-    its loop adds no parameters."""
-    root = train_py_root() if root is None else root
+def _init_dense_modules_(model: torch.nn.Module, root: Key) -> None:
+    """Overwrite the parameters of a model whose flax modules each hold
+    Dense_k layers or one embedding table (model.flax_path maps the
+    names): every Dense_k is a module of its own whose kernel is created
+    first, so a kernel's key is its module path with counter 1, as is a
+    table's."""
     for name, p in model.named_parameters():
         path = list(model.flax_path(name))
         key = param_key(root, path[:-1] + [1])
@@ -185,3 +185,44 @@ def init_mipnerf360_(model: torch.nn.Module, root: Key = None) -> None:
             p.copy_(he_uniform(key, (p.shape[1], p.shape[0]), p.device).T)
         else:
             raise ValueError(f"no JAX initializer for {name}")
+
+
+def init_mipnerf360_(model: torch.nn.Module, root: Key = None) -> None:
+    """Overwrite a MipNerf360Model's parameters with the JAX model's
+    initial values under `root` (train.py's by default). Every flax module
+    of that model sits at the top (NerfMLP_0, PropMLP_0, ImplicitMask_0,
+    GloEmbed_0, TransientEmbed_0; nerf_hugs_tpu/models/mipnerf360.py:
+    60-79), and nn.remat keeps the paths; the proposal levels call one
+    PropMLP_0, so its loop adds no parameters."""
+    _init_dense_modules_(model, train_py_root() if root is None else root)
+
+
+def init_vanilla_(model: torch.nn.Module, root: Key = None) -> None:
+    """Overwrite a VanillaNerfModel's parameters with the JAX model's
+    initial values under `root` (train.py's by default). Its flax modules
+    sit at the top (coarse, fine, appearance_embedding,
+    transient_embedding, implicit_mask; nerf_hugs_tpu/models/vanilla.py:
+    117-134): each PointMLP is called once, its Dense_k in call order with
+    the skips' and NeRF-W's transient head's widths, and init touches both
+    tables even where the run zeroes them (vanilla.py:137-142)."""
+    _init_dense_modules_(model, train_py_root() if root is None else root)
+
+
+# config.model_type -> the name of its backbone's function in this module.
+INITS = {"nerfacto": "init_nerfacto_", "nerf": "init_vanilla_",
+         "mipnerf360": "init_mipnerf360_"}
+
+
+def init_model_(model: torch.nn.Module, config, root: Key = None) -> None:
+    """The JAX model's initial values for the backbone config.model_type
+    names, under `root` (train.py's by default; JAX's PRNGKey(0) is
+    (0, 0)). Each backbone's function is looked up by its name in INITS
+    when it is called, so a caller may replace it (tools/quality_ab.py)."""
+    if config.model_type not in INITS:
+        raise ValueError(f"no JAX initializer for model_type "
+                         f"{config.model_type!r}")
+    init = globals()[INITS[config.model_type]]
+    if root is None:
+        init(model)
+    else:
+        init(model, root)

@@ -29,6 +29,7 @@ from torch import nn
 
 from nerf_hugs_torch.configs import config as cfg
 from nerf_hugs_torch.core import coord, render, stepfun
+from nerf_hugs_torch.models.from_jax import dense_flax_path
 from nerf_hugs_torch.models.mlp import ImplicitMask, PosEncMLP
 from nerf_hugs_torch.models.nerfacto import _embedding
 from nerf_hugs_torch.utils import structs
@@ -98,16 +99,8 @@ class MipNerf360Model(nn.Module):
         self._raydist_fn = cfg.resolve_raydist_fn(mc.raydist_fn)
         self.to(device)
 
-    @staticmethod
-    def flax_path(name: str) -> tuple:
-        """A parameter's path in the flax tree ('NerfMLP_0.Dense_0.weight'
-        -> ('NerfMLP_0', 'Dense_0', 'kernel'), 'GloEmbed_0.weight' ->
-        ('GloEmbed_0', 'embedding'))."""
-        parts = name.split(".")
-        if len(parts) == 2:
-            return (parts[0], "embedding")
-        return (parts[0], parts[1],
-                "kernel" if parts[2] == "weight" else parts[2])
+    # A parameter's path in the flax tree.
+    flax_path = staticmethod(dense_flax_path)
 
     def _embed(self, embed: Optional[nn.Embedding], rays, zero: bool):
         """[n, dim] rows at the rays' embed_idx, or zeros when `zero`;

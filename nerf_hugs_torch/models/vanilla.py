@@ -16,9 +16,9 @@ mask of models/mlp.py, no hash grid) on the fine rendering.
 
 Module names are the flax names (coarse, fine, appearance_embedding,
 transient_embedding, implicit_mask; Dense_k inside each MLP in flax's call
-order), which models/from_jax.py and the per-module gradient clipping rely
-on. The MLPs are torch Linears: flax runs them as nn.Dense outside any
-Pallas kernel.
+order), which models/from_jax.py, models/jax_init.py and the per-module
+gradient clipping rely on. The MLPs are torch Linears: flax runs them as
+nn.Dense outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from torch.nn import functional as F
 
 from nerf_hugs_torch.configs import config as cfg
 from nerf_hugs_torch.core import coord, render, stepfun
+from nerf_hugs_torch.models.from_jax import dense_flax_path
 from nerf_hugs_torch.models.mlp import (ImplicitMask, _dense, _Layers,
                                         _run_stack, _skip_stack)
 from nerf_hugs_torch.models.nerfacto import (NerfactoModel, _embedding,
@@ -194,6 +195,9 @@ class VanillaNerfModel(nn.Module):
             raise ValueError(f"unknown proposal_initial_sampler {sampler!r}")
         self._warp_fn = warps[sampler]
         self.to(device)
+
+    # A parameter's path in the flax tree.
+    flax_path = staticmethod(dense_flax_path)
 
     # The eval_embedding modes, the background draw and NeRF-W's buffers
     # are nerfacto's (JAX vanilla.py:137-151, 253-258 and 214-234 repeat

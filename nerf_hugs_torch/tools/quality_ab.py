@@ -9,8 +9,8 @@ each in a process of its own, their RESULT lines side by side.
         [--out JSON]
 
 A variant is a seed (the yaml's base.seed replaced, which draws other
-batches and sample jitter; nerfacto's initial weights are JAX's whatever
-the seed) or, at the yaml's own seed: --plain, the
+batches and sample jitter; the initial weights are JAX's whatever the
+seed) or, at the config's own seed: --plain, the
 hash-grid wrappers (ops/hashgrid.py::hashgrid_fwd,
 ops/hashgrid_bwd.py::hashgrid_table_grad) routed to their plain PyTorch
 versions on the card, so that a whole run through the kernels is held
@@ -18,7 +18,8 @@ against one through the plain path; --plain-bf16, the same with each
 table-gradient payload rounded to bfloat16; --fp32, enable_amp off;
 --init, the train driver starting from saved initial weights in place
 of JAX's (models/jax_init.py, the default); --init-seeds, from torch's
-draws at other seeds, with the yaml's batches.
+draws at other seeds, with the config's batches. --init and --init-seeds
+act on every backbone, a gin as well as a yaml.
 The spread over the seeds says how far two runs of the same code land
 apart.
 """
@@ -75,10 +76,12 @@ def route_to_plain(bf16_payload: bool = False) -> None:
 
 
 def start_from(init: str) -> None:
-    """Make the train driver start nerfacto from the state_dict saved at
-    the path `init` or, where `init` is an integer, from the initial
-    weights torch's generator draws at that seed, in place of JAX's
-    (models/jax_init.py); the batches keep the yaml's seed."""
+    """Make the train driver start its model, whatever the backbone, from
+    the state_dict saved at the path `init` or, where `init` is an
+    integer, from the initial weights torch's generator draws at that
+    seed, in place of JAX's: every backbone's function that
+    models/jax_init.py::init_model_ calls is replaced. The batches keep
+    the config's seed."""
     import torch
 
     from nerf_hugs_torch.models import construct_model, jax_init
@@ -93,7 +96,8 @@ def start_from(init: str) -> None:
             state = torch.load(init, map_location=device, weights_only=True)
         model.load_state_dict(state)
 
-    jax_init.init_nerfacto_ = init_from
+    for name in jax_init.INITS.values():
+        setattr(jax_init, name, init_from)
 
 
 def child_main(argv: list) -> None:
@@ -158,7 +162,9 @@ def main(argv=None) -> list:
         prog="python -m nerf_hugs_torch.tools.quality_ab",
         description="validate_quality runs of one config under seeds and "
                     "the plain hash-grid path.")
-    parser.add_argument("--config", required=True, help="a nerfacto yaml")
+    parser.add_argument("--config", required=True,
+                        help="a yaml or a gin (--seeds and --fp32 edit a "
+                             "yaml)")
     parser.add_argument("--steps", type=int, required=True)
     parser.add_argument("--seeds", type=int, nargs="*", default=[])
     parser.add_argument("--plain", action="store_true",
@@ -175,7 +181,7 @@ def main(argv=None) -> list:
     parser.add_argument("--init-seeds", type=int, nargs="*", default=[],
                         help="add a run from the initial weights torch's "
                              "generator draws at each of these seeds, the "
-                             "batches and the rest at the yaml's seed")
+                             "batches and the rest at the config's seed")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--out", help="write the readings here as JSON")
     args = parser.parse_args(argv)

@@ -36,13 +36,15 @@ Twin of tools/validate_quality.py, in its two modes:
      python -m nerf_hugs_torch.tools.validate_quality nerf [steps] [--amp]
      python -m nerf_hugs_torch.tools.validate_quality mipnerf360 [steps]
 
-The RESULT and LOCALIZATION lines have the format of the JAX tool's. Its
-parameters and batches come from torch generators seeded from
-config.seed, so a trained PSNR matches the JAX tool's within a margin,
-not bit for bit. A localization failure ends the run with an error after
-the RESULT line (the JAX tool prints the traceback and exits 0). It runs
-on the card unless --device cpu is given; without a card that is an
-error.
+The RESULT and LOCALIZATION lines have the format of the JAX tool's. Both
+modes start from the JAX tool's initial weights, drawn without JAX
+(models/jax_init.py: train.py's key in the first, PRNGKey(0) in the
+second); the sample jitter and backgrounds come from torch generators
+seeded from config.seed, so a trained PSNR matches the JAX tool's within
+a margin, not bit for bit. A localization failure ends the run with an
+error after the RESULT line (the JAX tool prints the traceback and exits
+0). It runs on the card unless --device cpu is given; without a card that
+is an error.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from nerf_hugs_torch.configs import gin_parser
 from nerf_hugs_torch.configs.config import Config, MLPConfig
 from nerf_hugs_torch.data import load_dataset
 from nerf_hugs_torch.metrics import image as nh_image
-from nerf_hugs_torch.models import construct_model
+from nerf_hugs_torch.models import construct_model, jax_init
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import driver
 from nerf_hugs_torch.train import step as step_lib
@@ -336,14 +338,23 @@ LEGACY_CONFIGS = {"nerfacto": nerfacto_config, "nerf": nerf_config,
                   "mipnerf360": mipnerf360_config}
 
 
+def legacy_model(config, device):
+    """The legacy mode's model, from the initial weights that JAX's tool
+    draws: setup_model(config, PRNGKey(0)) hands the key straight to
+    flax's init (models/jax_init.py)."""
+    model = construct_model(config, device,
+                            torch.Generator().manual_seed(config.seed))
+    jax_init.init_model_(model, config, root=(0, 0))
+    return model
+
+
 def run_legacy(model_type: str, steps: int, amp: bool, device_name: str):
     device = resolve_device(device_name)
     pin_fp32_precision()
     config = LEGACY_CONFIGS[model_type](amp)
     config.max_steps = steps
     dataset = load_dataset("train", "", config, is_training=True)
-    model = construct_model(config, device,
-                            torch.Generator().manual_seed(config.seed))
+    model = legacy_model(config, device)
     optimizer, scheduler = step_lib.create_optimizer(config, model)
     rng = torch.Generator(device=device).manual_seed(config.seed + 1)
     thresholds = step_lib.initial_inlier_thresholds(config, device)

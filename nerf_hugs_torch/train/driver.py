@@ -284,13 +284,10 @@ def train(args, device) -> None:
     harness = nh_image.MetricHarness(device=device)
     model = construct_model(config, device,
                             torch.Generator().manual_seed(config.seed))
-    if config.model_type == "nerfacto":
-        # train.py's own initial weights, drawn as JAX draws them: a
-        # nerfacto run's quality hangs on its initial draw by more than
-        # the 1 dB the quality gate allows (models/jax_init.py).
-        jax_init.init_nerfacto_(model)
-    elif config.model_type == "mipnerf360":
-        jax_init.init_mipnerf360_(model)
+    # train.py's own initial weights, drawn as JAX draws them, for every
+    # backbone: a nerfacto run's quality hangs on its initial draw by more
+    # than the 1 dB the quality gate allows (models/jax_init.py).
+    jax_init.init_model_(model, config)
     # Every rank starts from rank 0's parameters (train.py's ranks would
     # each draw their own: ROADMAP, known faults in the reference).
     mesh.replicate(model)
