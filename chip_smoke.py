@@ -698,17 +698,19 @@ def fused_route_check(torch, fused_mlp, x, ws, label):
     """One kernel call against the plain version; checks that the bf16
     launch went to the kernel its widths route to; returns the relative
     error (of the output's largest entry)."""
+    from nerf_hugs_torch.utils import trace
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
     fwd = fused_mlp.fused_mlp_fwd
-    before = (fwd.launches_resident, fwd.launches_streamed, fwd.launches_f32)
+    before = trace.counters()
     out_k = fwd(x, ws)
     out_p = fused_mlp.fused_mlp_plain(x, ws)
     torch.cuda.synchronize()
     check(out_k.shape == out_p.shape == (x.shape[0], dims[-1])
           and out_k.dtype == x.dtype,
           f"fused_mlp_fwd gave {tuple(out_k.shape)} {out_k.dtype} ({label})")
-    got = (fwd.launches_resident - before[0],
-           fwd.launches_streamed - before[1], fwd.launches_f32 - before[2])
+    n = launches_between(before, trace.counters())
+    got = (n["fused_mlp_fwd_resident"], n["fused_mlp_fwd_streamed"],
+           n["fused_mlp_fwd_f32"])
     if x.dtype == torch.bfloat16:
         resident = fused_mlp.is_resident(x.dtype, dims)
         check(got == ((1, 0, 0) if resident else (0, 1, 0)),
@@ -918,32 +920,38 @@ def small_model_phase(torch, tmp, dev, variant: str):
                             f"and cpu ({variant})")
 
 
-def launch_counters():
-    """{kernel: (wrapper, counter attribute)}: the hash-grid wrappers count
-    their d = 3 and d = 2 kernels apart."""
-    from nerf_hugs_torch.ops import accum, fused_mlp, hashgrid, hashgrid_bwd
-    return {"hashgrid_fwd": (hashgrid.hashgrid_fwd, "launches"),
-            "hashgrid_bwd": (hashgrid_bwd.hashgrid_table_grad, "launches"),
-            "fused_mlp_fwd": (fused_mlp.fused_mlp_fwd, "launches"),
-            "fused_mlp_fwd_resident": (fused_mlp.fused_mlp_fwd,
-                                       "launches_resident"),
-            "fused_mlp_fwd_streamed": (fused_mlp.fused_mlp_fwd,
-                                       "launches_streamed"),
-            "fused_mlp_fwd_f32": (fused_mlp.fused_mlp_fwd, "launches_f32"),
-            "planar_accum": (accum.planar_accum, "launches"),
-            "hashgrid_fwd_2d": (hashgrid.hashgrid_fwd, "launches_2d"),
-            "hashgrid_bwd_2d": (hashgrid_bwd.hashgrid_table_grad,
-                                "launches_2d")}
+# {kernel: its launch counter in nerf_hugs_torch.utils.trace}: the hash-grid
+# wrappers count their d = 3 and d = 2 kernels apart.
+LAUNCH_COUNTERS = {
+    "hashgrid_fwd": "hashgrid_fwd.launches",
+    "hashgrid_bwd": "hashgrid_bwd.launches",
+    "fused_mlp_fwd": "fused_mlp_fwd.launches",
+    "fused_mlp_fwd_resident": "fused_mlp_fwd.launches_resident",
+    "fused_mlp_fwd_streamed": "fused_mlp_fwd.launches_streamed",
+    "fused_mlp_fwd_f32": "fused_mlp_fwd.launches_f32",
+    "planar_accum": "planar_accum.launches",
+    "hashgrid_fwd_2d": "hashgrid_fwd.launches_2d",
+    "hashgrid_bwd_2d": "hashgrid_bwd.launches_2d"}
+# The counters at the last reset_launches.
+_launches_at_reset = {}
 
 
 def reset_launches() -> None:
-    for fn, attr in launch_counters().values():
-        setattr(fn, attr, 0)
+    from nerf_hugs_torch.utils import trace
+    _launches_at_reset.clear()
+    _launches_at_reset.update(trace.counters())
+
+
+def launches_between(before: dict, after: dict) -> dict:
+    """{kernel: its launches} between two snapshots of the counters."""
+    return {k: after.get(c, 0) - before.get(c, 0)
+            for k, c in LAUNCH_COUNTERS.items()}
 
 
 def read_launches() -> dict:
-    return {k: getattr(fn, attr)
-            for k, (fn, attr) in launch_counters().items()}
+    """{kernel: its launches since the last reset_launches}."""
+    from nerf_hugs_torch.utils import trace
+    return launches_between(_launches_at_reset, trace.counters())
 
 
 def captured_phase(torch, hashgrid, hashgrid_bwd, cfg_path, data_dir, dev,
@@ -4086,10 +4094,13 @@ def main() -> None:
     from nerf_hugs_torch.tools.hashgrid_inputs import (
         MASK_N, PHOTOTOURISM_SCENE, base_yaml)
     from nerf_hugs_torch.utils.device import pin_fp32_precision
+    from nerf_hugs_torch.utils import trace
     pin_fp32_precision()
     kernels.load()
     built = ", ".join(os.path.relpath(p, HERE) for p in kernels.sources())
-    print(f"build: {built} -> {kernels.build_seconds:.1f} s", flush=True)
+    counts = trace.counters()
+    print(f"build: {built} -> {counts['kernels.load_s']:.1f} s, "
+          f"{counts.get('kernels.builds', 0)} nvcc runs", flush=True)
     for src, log in kernels.build_log.items():
         for line in log.splitlines():
             if re.search(r"Used \d+ registers|spill", line):

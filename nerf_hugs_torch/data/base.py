@@ -2,11 +2,14 @@
 
 Twin of nerf_hugs_tpu/data/base.py: a daemon producer thread fills a
 queue.Queue(3) with Batches of numpy arrays; the train loop moves each
-batch to the device. Under a process group each rank draws its own share
-of the global batch: batch_size and image_num_per_batch are divided by the
-world size, and the sampler is seeded with the rank, as JAX divides them
-by the process count and seeds with the process index (data/base.py:54-65),
-so rank r draws what JAX host r draws. Training batches are random dilated
+batch to the device. The producer's assembly of a batch is the span
+`data.assemble`, the consumer's get the span `data.wait`, and a get that
+finds the queue empty counts `data.starved` (utils/trace.py). Under a
+process group each rank draws its own share of the global batch:
+batch_size and image_num_per_batch are divided by the world size, and the
+sampler is seeded with the rank, as JAX divides them by the process count
+and seeds with the process index (data/base.py:54-65), so rank r draws
+what JAX host r draws. Training batches are random dilated
 patches, gathered by the native threaded sampler (the port's copy of
 native/raysampler.cc, nerf_hugs_torch/native/) when g++ can build it, else
 by numpy. With sample_from_half_image (the finetune stage on the test
@@ -34,6 +37,7 @@ from nerf_hugs_torch.core import rayops
 from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.utils import io as nh_io
 from nerf_hugs_torch.utils import structs
+from nerf_hugs_torch.utils import trace
 
 
 class Dataset(threading.Thread, metaclass=abc.ABCMeta):
@@ -136,11 +140,18 @@ class Dataset(threading.Thread, metaclass=abc.ABCMeta):
         return self
 
     def __next__(self) -> structs.Batch:
-        return self._queue.get()
+        with trace.span("data.wait"):
+            try:
+                return self._queue.get_nowait()
+            except queue.Empty:
+                trace.count("data.starved")
+                return self._queue.get()
 
     def run(self):
         while True:
-            self._queue.put(self._next_fn())
+            with trace.span("data.assemble"):
+                batch = self._next_fn()
+            self._queue.put(batch)
 
     @property
     def size(self) -> int:

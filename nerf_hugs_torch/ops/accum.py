@@ -8,7 +8,8 @@ pair) and weights w [8, n] give
 for j < F = 2, accumulated in that order from zero in fp32.
 
 On CUDA tensors `planar_accum` launches the hand-written kernel of
-csrc/accum.cu; on CPU tensors it is the plain version below.
+csrc/accum.cu, counted in utils/trace.py's `planar_accum.launches`; on CPU
+tensors it is the plain version below.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from nerf_hugs_torch.ops import kernels
+from nerf_hugs_torch.utils import trace
 
 F = 2  # features per level; a gathered row is 2F = 4 floats (16 bytes)
 
@@ -73,8 +75,5 @@ def planar_accum(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
             w.data_ptr(), w.stride(0), out.data_ptr(), n,
             torch.cuda.current_stream().cuda_stream)
     kernels.check(status, "planar_accum")
-    planar_accum.launches += 1
+    trace.count("planar_accum.launches")
     return out
-
-
-planar_accum.launches = 0

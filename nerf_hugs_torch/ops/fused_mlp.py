@@ -15,8 +15,9 @@ streamed kernel reads the zero-padded copies of `streamed_weights`. In
 fp32 one kernel (exact FMAs on 8x8 register tiles, one activation buffer
 updated in place) reads the weights as they are, holding in shared memory
 the layers `f32_plan` makes resident and streaming the rest. The wrapper
-counts every launch (`launches`) and each kernel's (`launches_resident`,
-`launches_streamed`, `launches_f32`). The backward recomputes the
+counts every launch (`fused_mlp_fwd.launches`) and each kernel's
+(`fused_mlp_fwd.launches_resident`, `.launches_streamed`, `.launches_f32`)
+in utils/trace.py's counters. The backward recomputes the
 activations and runs plain matmuls, line for line the JAX custom VJP
 (`_fused_mlp_bwd`), which computes it with XLA outside any Pallas kernel.
 """
@@ -31,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from nerf_hugs_torch.ops import kernels
+from nerf_hugs_torch.utils import trace
 
 MAX_WIDTH = 256   # csrc/fused_mlp.cu kMaxWidth
 MAX_LAYERS = 8    # csrc/fused_mlp.cu kMaxLayers
@@ -248,20 +250,14 @@ def fused_mlp_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor]
     if n == 0:
         return out
     launch(kernels.load(), x, kernel_weights(weights), dims, out)
-    fused_mlp_fwd.launches += 1
+    trace.count("fused_mlp_fwd.launches")
     if x.dtype == torch.float32:
-        fused_mlp_fwd.launches_f32 += 1
+        trace.count("fused_mlp_fwd.launches_f32")
     elif is_resident(x.dtype, dims):
-        fused_mlp_fwd.launches_resident += 1
+        trace.count("fused_mlp_fwd.launches_resident")
     else:
-        fused_mlp_fwd.launches_streamed += 1
+        trace.count("fused_mlp_fwd.launches_streamed")
     return out
-
-
-fused_mlp_fwd.launches = 0            # every launch
-fused_mlp_fwd.launches_resident = 0   # bf16 on the resident kernel
-fused_mlp_fwd.launches_streamed = 0   # bf16 on the streamed kernel
-fused_mlp_fwd.launches_f32 = 0        # fp32
 
 
 class _FusedMLP(torch.autograd.Function):

@@ -19,7 +19,9 @@ csrc/hashgrid.cu (forward here, table gradient in ops/hashgrid_bwd.py)
 joined by one autograd.Function; on CPU tensors the same Function runs
 their plain PyTorch versions. The kernels take d = 3 (the nerfacto fields)
 and d = 2 (the HA-NeRF implicit mask); each wrapper counts the launches at
-d = 3 (`launches`) and at d = 2 (`launches_2d`) apart. What a spec derives
+d = 3 and at d = 2 apart, in the counters `hashgrid_fwd.launches`,
+`hashgrid_fwd.launches_2d`, `hashgrid_bwd.launches` and
+`hashgrid_bwd.launches_2d` of utils/trace.py. What a spec derives
 (scales, level sizes and offsets) is computed once per spec
 (`grid_constants`), and what a launch needs of it (the C arguments, the
 checks of the spec, the level table on each device) once more
@@ -41,6 +43,7 @@ import torch
 from torch import nn
 
 from nerf_hugs_torch.ops import kernels
+from nerf_hugs_torch.utils import trace
 
 _PRIMES = (1, 2654435761, 805459861)
 # The dims csrc/hashgrid.cu is instantiated for.
@@ -239,7 +242,7 @@ def hashgrid_encode_plain(table: torch.Tensor, positions: torch.Tensor,
 class KernelSpec:
     """What a launch needs of a spec the kernels take (`kernel_spec`,
     checked once per spec): the C entry points' spec arguments, the sizes
-    the wrappers check, the launch counter, and the level table on each
+    the wrappers check, the launch counters, and the level table on each
     CUDA device, copied there at its first launch."""
     values: int          # table floats: num_rows * F
     num_levels: int
@@ -247,7 +250,7 @@ class KernelSpec:
     hash_mask: int
     hash_add: int
     output_dim: int
-    counter: str         # launches (d = 3) or launches_2d (d = 2)
+    counters: Tuple[str, str]  # the forward's and the table gradient's
     levels: np.ndarray   # level_table(spec)
     level_tables: Dict[int, Tuple[torch.Tensor, int]]  # index: (t, ptr)
 
@@ -274,7 +277,7 @@ def kernel_spec(spec: HashGridSpec) -> KernelSpec:
         raise ValueError("table rows must fit int32")
     return KernelSpec(c.num_rows * 2, spec.num_levels, spec.num_dims,
                       c.hash_mask, c.hash_add, spec.output_dim,
-                      "launches_2d" if spec.num_dims == 2 else "launches",
+                      launch_counters(spec.num_dims),
                       level_table(spec), {})
 
 
@@ -336,17 +339,15 @@ def hashgrid_fwd(table: torch.Tensor, positions: torch.Tensor,
     out = table.new_empty(positions.shape[:-1] + (k.output_dim,))
     launch_encode(kernels.load(), table, positions, out, spec)
     if out.numel():
-        count_launch(hashgrid_fwd, k)
+        trace.count(k.counters[0])
     return out
 
 
-def count_launch(wrapper, k: KernelSpec) -> None:
-    """One launch of the wrapper's d = 3 or d = 2 kernel."""
-    setattr(wrapper, k.counter, getattr(wrapper, k.counter) + 1)
-
-
-hashgrid_fwd.launches = 0      # d = 3
-hashgrid_fwd.launches_2d = 0   # d = 2
+def launch_counters(num_dims: int) -> Tuple[str, str]:
+    """The counters of the forward's and the table gradient's launches at
+    d = num_dims."""
+    suffix = "launches_2d" if num_dims == 2 else "launches"
+    return f"hashgrid_fwd.{suffix}", f"hashgrid_bwd.{suffix}"
 
 
 class _HashGridEncode(torch.autograd.Function):

@@ -22,8 +22,8 @@ import torch
 from nerf_hugs_torch.ops import kernels
 from nerf_hugs_torch.ops.hashgrid import (HashGridSpec, check_devices,
                                           check_tensor, corner_rows_level,
-                                          count_launch, grid_constants,
-                                          kernel_spec)
+                                          grid_constants, kernel_spec)
+from nerf_hugs_torch.utils import trace
 
 
 def hashgrid_table_grad_plain(positions: torch.Tensor, grad_out: torch.Tensor,
@@ -78,9 +78,5 @@ def hashgrid_table_grad(positions: torch.Tensor, grad_out: torch.Tensor,
     grad_table = positions.new_zeros(k.values)
     launch_table_grad(kernels.load(), positions, grad_out, grad_table, spec)
     if n:
-        count_launch(hashgrid_table_grad, k)
+        trace.count(k.counters[1])
     return grad_table
-
-
-hashgrid_table_grad.launches = 0      # d = 3
-hashgrid_table_grad.launches_2d = 0   # d = 2

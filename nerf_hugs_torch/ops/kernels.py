@@ -5,7 +5,9 @@ shared library with a plain C interface under nerf_hugs_torch/_build/,
 named by a hash of the source and the flags so an edited source rebuilds;
 the sources build in parallel, one nvcc each. Loading needs no PyTorch
 headers, which keeps a build to seconds. Nothing here runs at import time:
-the CPU tests import every module on machines without nvcc.
+the CPU tests import every module on machines without nvcc. The counters
+of utils/trace.py: `kernels.builds`, the nvcc runs, and `kernels.load_s`,
+the seconds of the first `load` (builds and dlopen).
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 import types
 from typing import Dict, Optional
+
+from nerf_hugs_torch.utils import trace
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -46,7 +49,6 @@ SIGNATURES = {
 
 _lib: Optional[types.SimpleNamespace] = None
 _lock = threading.Lock()
-build_seconds: Optional[float] = None
 # nvcc's ptxas report (registers, shared memory, spills) per source built
 # in this process.
 build_log: Dict[str, str] = {}
@@ -84,6 +86,7 @@ def _build_all() -> list:
         if not os.path.exists(path):
             tmp = f"{path}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            trace.count("kernels.builds")
             running.append((src, path, tmp, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -104,13 +107,12 @@ def _build_all() -> list:
 def load() -> types.SimpleNamespace:
     """Build (once per source) and dlopen every kernel library; returns the
     entry points of SIGNATURES as attributes."""
-    global _lib, build_seconds
+    global _lib
     if _lib is not None:  # every launch asks: no lock once built
         return _lib
-    with _lock:
+    with _lock, trace.timed("kernels.load_s"):
         if _lib is not None:
             return _lib
-        t0 = time.perf_counter()
         fns = {}
         for path in _build_all():
             lib = ctypes.CDLL(path)
@@ -123,7 +125,6 @@ def load() -> types.SimpleNamespace:
         missing = set(SIGNATURES) - set(fns)
         if missing:
             raise RuntimeError(f"no csrc library exports {sorted(missing)}")
-        build_seconds = time.perf_counter() - t0
         _lib = types.SimpleNamespace(**fns)
         return _lib
 

@@ -98,6 +98,7 @@ import torch
 
 from nerf_hugs_torch.ops import hashgrid, hashgrid_bwd, kernels
 from nerf_hugs_torch.tools import hashgrid_inputs
+from nerf_hugs_torch.utils import trace
 
 RUNS = 10
 # NVIDIA H100 SXM data sheet: memory rate and the fp32 FMA peak.
@@ -524,8 +525,8 @@ def host_main(args) -> dict:
         "ctypes hashgrid_fwd, n = 0 (no launch)": lambda: lib.hashgrid_fwd(
             *args0),
         "ctypes hashgrid_fwd, launch": lambda: lib.hashgrid_fwd(*args_n),
-        "count_launch": lambda: hashgrid.count_launch(hashgrid.hashgrid_fwd,
-                                                      k),
+        "trace.count (the launch counter)": lambda: trace.count(
+            k.counters[0]),
         # What an earlier path called instead.
         "torch.device + dict lookup by (spec, device)":
             lambda: level_tables.get((spec, torch.device(device))),

@@ -27,7 +27,10 @@ summaries go to {checkpoint_dir}/tb_{stage} (train.py:192-196, 267-288,
 event the train scalars, the loss terms and histograms of the buffer,
 each in-train eval its metrics and the images of utils/vis.py's suite.
 Every printed line also lands in {save_dir}/run_log.log. It runs on the
-card unless --device cpu is given; without a card that is an error.
+card unless --device cpu is given; without a card that is an error. With
+--trace each print line ends in the host ms a step of the spans of
+TraceLine.SPANS since the last print (utils/trace.py) and the loader's
+starved gets.
 
 Run as N processes (`torchrun --nproc_per_node N -m
 nerf_hugs_torch.train ...`), it trains one model on N times the per-rank
@@ -57,7 +60,7 @@ from nerf_hugs_torch.parallel import mesh
 from nerf_hugs_torch.train import checkpoints
 from nerf_hugs_torch.train import step as step_lib
 from nerf_hugs_torch.train.render_image import render_image
-from nerf_hugs_torch.utils import vis
+from nerf_hugs_torch.utils import trace, vis
 from nerf_hugs_torch.utils.device import pin_fp32_precision, resolve_device
 from nerf_hugs_torch.utils.record import Recorder
 from nerf_hugs_torch.utils.summary import SummaryWriter
@@ -96,6 +99,9 @@ def parse_args(argv=None):
         prog="python -m nerf_hugs_torch.train",
         description="Train a model from a yaml or gin config.")
     add_config_args(parser)
+    parser.add_argument("--trace", action="store_true",
+                        help="record the program's spans and add their host "
+                             "ms a step to each print line")
     return parser.parse_args(argv)
 
 
@@ -126,6 +132,35 @@ def _eval_metrics(model, batches, train_frac, config, device, harness):
     metrics = {k: float(np.mean([m[k] for m in per_image]))
                for k in per_image[0]}
     return metrics, rendering, batch
+
+
+class TraceLine:
+    """The --trace part of a print line: the host ms a step of SPANS and
+    the loader's starved gets (`data.starved`) since the last reading,
+    from the records it drains from utils/trace.py's ring."""
+
+    SPANS = ("data.wait", "data.copy", "step.forward", "step.backward",
+             "step.update")
+
+    def __init__(self):
+        self.restart()
+
+    def restart(self) -> None:
+        """Start the next reading from now."""
+        trace.drain()
+        self.starved = trace.counters().get("data.starved", 0)
+
+    def read(self, steps: int) -> str:
+        ms = dict.fromkeys(self.SPANS, 0.0)
+        for r in trace.drain():
+            if r.name in ms:
+                ms[r.name] += (r.end - r.start) * 1e3
+        starved = trace.counters().get("data.starved", 0)
+        line = " ".join(f"{k}={v / max(steps, 1):.2f}ms"
+                        for k, v in ms.items())
+        line += f" data.starved={starved - self.starved}"
+        self.starved = starved
+        return line
 
 
 def read_stats(stats_buffer, thresholds=None) -> dict:
@@ -264,6 +299,8 @@ def main(argv=None):
 
 def train(args, device) -> None:
     config = load_config_from_args(args)
+    if args.trace:
+        trace.enable()
     preflight(config)
     pin_fp32_precision()
     world = mesh.process_count()
@@ -361,6 +398,7 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
                else (batch.to(device) for batch in dataset))
     stats_buffer = []
     total_time = 0.0
+    traced = TraceLine() if trace.enabled() else None
     start = time.time()
     for step in range(init_step, num_steps + 1):
         batch = next(batches)
@@ -377,6 +415,8 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
             thresholds = stats["robust_inlier_threshold"]
         stats_buffer.append(stats)
         if step == init_step or step % config.print_every == 0:
+            spans = "" if traced is None else " " + traced.read(
+                len(stats_buffer))
             if lead:
                 host = read_stats(stats_buffer, thresholds if robust else None)
                 elapsed = time.time() - start
@@ -395,7 +435,7 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
                     f"loss={float(np.mean(host['loss'])):.5f} "
                     f"psnr={float(np.mean(host['psnr'])):.3f} lr={lr:.2e} "
                     f"{steps_per_sec:.2f} steps/s "
-                    f"{batch_size * steps_per_sec:.0f} rays/s {terms}")
+                    f"{batch_size * steps_per_sec:.0f} rays/s {terms}{spans}")
                 train_summaries(writer, step, host, steps_per_sec,
                                 batch_size * steps_per_sec, lr, total_time)
             stats_buffer = []
@@ -427,6 +467,8 @@ def run_stage(stage: str, model, config, device, test_dataset, harness,
                     f"{k}={v:.4f}" for k, v in metrics.items()))
                 render_summaries(writer, step, metrics, rendering,
                                  test_batch.rays, device)
+            if traced is not None:
+                traced.restart()
             start = time.time()
     if lead:
         writer.close()

@@ -29,6 +29,7 @@ from nerf_hugs_torch.core import math as nh_math
 from nerf_hugs_torch.losses import zoo
 from nerf_hugs_torch.metrics.image import mse_to_psnr
 from nerf_hugs_torch.parallel import mesh
+from nerf_hugs_torch.utils import trace
 
 
 class OptaxAdam(torch.optim.Adam):
@@ -66,9 +67,12 @@ def create_adam(params: Iterable[torch.nn.Parameter],
     """optax.adam(learning_rate=lr_fn, b1, b2, eps) as a fused OptaxAdam
     and a LambdaLR that sets the rate to lr_fn(count), count being the
     number of steps taken before this one (optax's 0-based schedule index).
-    Returns (optimizer, scheduler); step both through `apply_gradients`."""
-    opt = OptaxAdam(params, lr=1.0, betas=(b1, b2), eps=eps, fused=True)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_fn)
+    Returns (optimizer, scheduler); step both through `apply_gradients`.
+    Their construction adds its seconds to the counter
+    `setup.optimizer_s` (utils/trace.py)."""
+    with trace.timed("setup.optimizer_s"):
+        opt = OptaxAdam(params, lr=1.0, betas=(b1, b2), eps=eps, fused=True)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_fn)
 
 
 def create_optimizer(config, model: torch.nn.Module):
@@ -268,24 +272,32 @@ def train_step(model, optimizer, scheduler, batch, train_frac: float,
     (all of them, or the finetune groups); returns detached stats (loss,
     losses, mses, psnrs, psnr, and RobustNeRF's robust_* with the next
     step's robust_inlier_threshold) as device tensors, without
-    synchronising."""
-    for p in model.parameters():
-        p.grad = None
-    loss, stats = compute_loss(model, batch, train_frac, config, rng,
-                               inlier_thresholds, is_finetune)
-    loss.backward()
-    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
-    grads = mean_gradients(params)
-    grads = clip_gradients(grads, config)
-    apply_gradients(optimizer, scheduler, params, grads)
-    out = {k: v.detach() for k, v in stats.items() if k.startswith("robust_")}
-    out.update({"loss": loss.detach(), "mses": stats["mses"].detach(),
-                "losses": {k: v.detach()
-                           for k, v in stats["losses"].items()}})
-    out = mean_stats(out)
-    out["psnrs"] = mse_to_psnr(out["mses"])
-    out["psnr"] = out["psnrs"][-1]
-    return out
+    synchronising. Its spans (utils/trace.py): `step` around the whole,
+    `step.forward` (the loss), `step.backward` and `step.update` (the
+    gradients' mean over the ranks, clipping and Adam)."""
+    with trace.span("step"):
+        for p in model.parameters():
+            p.grad = None
+        with trace.span("step.forward"):
+            loss, stats = compute_loss(model, batch, train_frac, config, rng,
+                                       inlier_thresholds, is_finetune)
+        with trace.span("step.backward"):
+            loss.backward()
+        with trace.span("step.update"):
+            params = {k: p for k, p in model.named_parameters()
+                      if p.requires_grad}
+            grads = mean_gradients(params)
+            grads = clip_gradients(grads, config)
+            apply_gradients(optimizer, scheduler, params, grads)
+        out = {k: v.detach() for k, v in stats.items()
+               if k.startswith("robust_")}
+        out.update({"loss": loss.detach(), "mses": stats["mses"].detach(),
+                    "losses": {k: v.detach()
+                               for k, v in stats["losses"].items()}})
+        out = mean_stats(out)
+        out["psnrs"] = mse_to_psnr(out["mses"])
+        out["psnr"] = out["psnrs"][-1]
+        return out
 
 
 def mean_gradients(params: Dict[str, torch.nn.Parameter]

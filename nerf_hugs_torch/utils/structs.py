@@ -3,7 +3,8 @@
 Plain dataclasses twinning nerf_hugs_tpu/utils/structs.py (flax struct
 dataclasses there). Every field shares the leading batch dims. The data
 layer fills them with numpy arrays on the host; `.to(device)` turns every
-field into a tensor on the device.
+field into a tensor on the device (a Batch's copy is the span `data.copy`
+of utils/trace.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
+
+from nerf_hugs_torch.utils import trace
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -79,9 +82,10 @@ class Batch:
     rgb: Optional[Array] = None
 
     def to(self, device, pin: bool = False) -> "Batch":
-        return Batch(rays=self.rays.to(device, pin),
-                     rgb=None if self.rgb is None
-                     else _to_tensor(self.rgb, device, pin))
+        with trace.span("data.copy"):
+            return Batch(rays=self.rays.to(device, pin),
+                         rgb=None if self.rgb is None
+                         else _to_tensor(self.rgb, device, pin))
 
 
 class DataSplit(enum.Enum):

@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 import torch_port_util  # noqa: F401  (pins torch's threads)
 from nerf_hugs_torch.ops import accum
 from nerf_hugs_torch.tools import bench_fwd_copies as tbench
+from nerf_hugs_torch.utils import trace
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # The tool's own tolerance (tools/bench_fwd_copies.py:218): the candidates
@@ -182,13 +183,13 @@ def test_kernel_matches_plain_version(cuda):
     tab2, idx, w = make_inputs(n + 4, 4)
     vals = [torch.from_numpy(tab2[idx[c]]).to(cuda) for c in range(4)]
     wt = torch.from_numpy(w).to(cuda)
-    before = accum.planar_accum.launches
+    before = trace.counters().get("planar_accum.launches", 0)
     # A ragged span: rows 1..n of each input, w's columns 1..n as a view.
     sub = [v[1:n + 1] for v in vals]
     got = accum.planar_accum(*sub, wt[:, 1:n + 1])
     torch.cuda.synchronize()
     want = accum.planar_accum_plain(*sub, wt[:, 1:n + 1])
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    assert accum.planar_accum.launches == before + 1
+    assert trace.counters()["planar_accum.launches"] == before + 1
     with pytest.raises(ValueError, match="one device"):
         accum.planar_accum(*vals[:3], vals[3].cpu(), wt[:, :n + 4])

@@ -25,6 +25,7 @@ from nerf_hugs_torch.models.nerfacto import NerfactoModel
 from nerf_hugs_torch.ops import fused_mlp as tfm
 from nerf_hugs_torch.train import step as tstep
 from nerf_hugs_torch.utils import structs as tstructs
+from nerf_hugs_torch.utils import trace
 
 # Relative to each output's largest entry. fp32: the two sides sum the
 # same exact products in another order. bf16: both round at the same
@@ -283,8 +284,10 @@ def test_kernel_matches_plain_version(cuda, dims, dtype, n, skip):
     xt = as_torch(rows, dtype).to(cuda)[skip:]
     wt = [as_torch(w, dtype).to(cuda) for w in weights]
     fwd = tfm.fused_mlp_fwd
-    counters = lambda: (fwd.launches, fwd.launches_resident,
-                        fwd.launches_streamed, fwd.launches_f32)
+    counters = lambda: tuple(
+        trace.counters().get(f"fused_mlp_fwd.{k}", 0)
+        for k in ("launches", "launches_resident", "launches_streamed",
+                  "launches_f32"))
     before = counters()
     got = fwd(xt, wt)
     resident = tfm.is_resident(xt.dtype, dims)

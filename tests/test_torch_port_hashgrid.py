@@ -203,7 +203,9 @@ def test_spec_constants_are_computed_once(monkeypatch, num_dims):
         assert (k.values, k.num_levels, k.num_dims, k.hash_mask, k.hash_add,
                 k.output_dim) == (rows * 2, 5, num_dims, 2047, 0,
                                   spec.output_dim)
-        assert k.counter == ("launches_2d" if num_dims == 2 else "launches")
+        suffix = "launches_2d" if num_dims == 2 else "launches"
+        assert k.counters == (f"hashgrid_fwd.{suffix}",
+                              f"hashgrid_bwd.{suffix}")
         np.testing.assert_array_equal(k.levels, thg.level_table(spec))
     assert len(calls) == 1
     # The plain versions read the same constants.

@@ -28,6 +28,7 @@ from nerf_hugs_torch.models import nerfacto as tnerfacto
 from nerf_hugs_torch.ops import hashgrid as thg
 from nerf_hugs_torch.ops import hashgrid_bwd as tbwd
 from nerf_hugs_torch.tools import hashgrid_inputs
+from nerf_hugs_torch.utils import trace
 
 N = 32 * 9 + 5   # ragged: no multiple of a warp
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -210,12 +211,12 @@ def test_2d_kernels_match_plain(cuda, name):
     else:
         arrays = inputs(name, spec, SETS.index(name))
     pos, cot = (torch.from_numpy(x).to(cuda) for x in arrays)
-    fwd0 = thg.hashgrid_fwd.launches_2d
-    bwd0 = tbwd.hashgrid_table_grad.launches_2d
+    before = trace.counters()
     got_f = thg.hashgrid_fwd(table, pos, spec)
     got_g = tbwd.hashgrid_table_grad(pos, cot, spec)
-    assert thg.hashgrid_fwd.launches_2d == fwd0 + 1
-    assert tbwd.hashgrid_table_grad.launches_2d == bwd0 + 1
+    after = trace.counters()
+    for name in ("hashgrid_fwd.launches_2d", "hashgrid_bwd.launches_2d"):
+        assert after[name] == before.get(name, 0) + 1
     # Bit for bit: the forward repeats the plain version's arithmetic.
     torch.testing.assert_close(got_f, thg.hashgrid_encode_plain(
         table, pos, spec), rtol=0, atol=0)

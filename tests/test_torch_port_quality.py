@@ -420,7 +420,9 @@ def test_quality_ab_starts_from_other_initial_weights(tmp_path,
     import jax_initial_weights
     from nerf_hugs_torch.models import construct_model, jax_init
     from nerf_hugs_torch.tools import quality_ab
-    monkeypatch.setattr(jax_init, "init_nerfacto_", jax_init.init_nerfacto_)
+    # start_from replaces every backbone's init: restore them all after.
+    for name in jax_init.INITS.values():
+        monkeypatch.setattr(jax_init, name, getattr(jax_init, name))
     cfg = tu.write_tiny_yaml(str(tmp_path))
     config = tyaml.load_yaml_config(cfg)
     state = jax_initial_weights.initial_state_dict(cfg, key=1)
