@@ -47,6 +47,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      route to (8 layers of 256: the streamed kernel, the rest resident),
      and fp32 at its edges (the same, NeRF-W's transient head and the
      widest head; every fp32 call takes the fp32 kernel);
+  4b. the integrated-positional-encoding kernels (ops/ipe.py) against
+     their plain versions: the forward bit for bit, the gradient within
+     1e-5 of its largest entry (against the closed form and autograd),
+     at every (basis, degrees) of configs/mipnerf360/*.gin on a ragged
+     4099 rows with arguments around the 100 pi cap, inf and NaN, and at
+     mip360_bf16.train's shapes ([1048576, 21] and [524288, 21], 12
+     degrees) in bf16 and fp32, then the median of 10 timed runs of each;
   5. a small model on the card (kernels) against the same weights on the
      CPU (plain versions), loss and every parameter gradient, with the
      Dense MLPs, with enable_tcnn_mlp on for the field and the proposal,
@@ -143,8 +150,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      and of 256 prompts (filters and packing included), s/image with its
      stage split at configs/hugs/kubric.yml and kubric_tpu.yml, and at
      kubric.yml on one 768x1024 frame, with peak device memory;
-  14. Mip-NeRF 360 (no ported kernel runs on its path: each run must
-     launch none): (a) the toy model of tests/test_torch_port_mipnerf360.py
+  14. Mip-NeRF 360 (no ported kernel runs on its path, each run must
+     launch none, but the encoding's of phase 4b: the phase's runs must
+     launch its forward, and its gradient never, since every shipped gin
+     stops the levels' gradient): (a) the toy model of tests/test_torch_port_mipnerf360.py
      (NerfMLP 2 x 32, PropMLP 2 x 16, 8 / 4 samples) on the card against
      the same weights on the CPU, loss and every gradient, in fp32 (phase
      5's tolerances) and in bf16 with remat (2e-2), as base, GLO with the
@@ -281,7 +290,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      read around every train step and the eval: a
      nerfacto train step launches hashgrid_fwd and hashgrid_bwd (HA-NeRF
      the d = 2 kernels too), a finetune step no hashgrid_bwd, a Mip-NeRF
-     360 or vanilla run no kernel, no run a fused-MLP kernel; every loss
+     360 run none but the encoding's, a vanilla run no kernel, no run a
+     fused-MLP kernel; every loss
      and loss term finite, the eval's PNG and finite PSNR (in-train: its
      finite PSNR); a withmask run's
      train split has a mean static mask below 1, a RobustNeRF run's carried
@@ -864,6 +874,156 @@ SMALL_VARIANTS = {
 }
 
 
+# Phase 4b: the encoding kernels of ops/ipe.py. The mip360_bf16.train cell
+# encodes 16384 rays a step: 64 samples a ray at each proposal level, 32 at
+# the NeRF level, lifted onto icosahedron/2 (d = 21) at 12 degrees; every
+# (basis, degrees) of the Mip-NeRF 360 gins is checked besides on a ragged
+# n, with arguments around the range-reduction cap and not finite.
+IPE_ROWS = (16384 * 64, 16384 * 32)
+IPE_BASIS, IPE_DEGREES = ("icosahedron", 2), (0, 12)
+IPE_EDGES = ((("icosahedron", 2), 0, 12), (("icosahedron", 2), 0, 16),
+             (("octahedron", 1), 0, 16))
+IPE_EDGE_N = 4099
+# The gradient against the plain closed form and against autograd through
+# the eager composition, relative to its largest entry (fp32 sums in
+# another order).
+IPE_GRAD_RTOL = 1e-5
+
+
+def ipe_inputs(torch, n, basis_key, gen, dev, lo=0, hi=12, specials=False):
+    """Lifted means and variances [n, d] on the card: points uniform in
+    [-4, 4]^3 with covariances A A^T (A ~ 0.05 N(0, 1)) through the basis;
+    with `specials`, the first means set to +-100 pi / 2^l, l in [lo, hi),
+    and their neighbours, large, zero, infinite and NaN, and three
+    variances to inf, NaN and 0."""
+    import numpy as np
+    from nerf_hugs_torch.core import coord, geopoly
+    basis = torch.tensor(np.ascontiguousarray(
+        geopoly.generate_basis(*basis_key).T), dtype=torch.float32,
+        device=dev)
+    pts = torch.rand(n, 3, generator=gen, device=dev) * 8 - 4
+    a = torch.randn(n, 3, 3, generator=gen, device=dev) * 0.05
+    mean, var = coord.lift_and_diagonalize(pts, a @ a.transpose(-1, -2),
+                                           basis)
+    mean, var = mean.contiguous(), var.contiguous()
+    if specials:
+        cap = np.float32(100 * math.pi)
+        vals = []
+        for deg in range(lo, hi):
+            at = np.float32(cap / np.float32(2.0 ** deg))
+            for x in (at, np.nextafter(at, np.float32(0)),
+                      np.nextafter(at, np.float32(np.inf))):
+                vals += [x, -x]
+        vals += [1e6, -7.7e3, 3e30, 0.0, -0.0, np.inf, -np.inf, np.nan]
+        mean.view(-1)[:len(vals)] = torch.tensor(
+            np.array(vals, np.float32), device=dev)
+        var.view(-1)[-3:] = torch.tensor([np.inf, np.nan, 0.0], device=dev)
+    return mean, var
+
+
+def ipe_fwd_error(torch, got, want):
+    """(equal bit for bit, NaN matching NaN; largest |got - want| where
+    both are finite)."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int16
+    same = bool(torch.equal(nan_g, nan_w) and torch.equal(
+        got.masked_fill(nan_g, 0).view(ints),
+        want.masked_fill(nan_w, 0).view(ints)))
+    both = torch.isfinite(got) & torch.isfinite(want)
+    diff = (got.float() - want.float()).abs()[both]
+    return same, float(diff.max()) if diff.numel() else 0.0
+
+
+def ipe_grad_error(pairs) -> float:
+    """The largest |got - want| over the largest |want|, over (got, want)
+    pairs."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in pairs)
+
+
+def ipe_phase(torch, dev):
+    """Phase 4b: the encoding's forward kernel against its plain version
+    (the eager composition and cast) bit for bit, and its gradient kernel
+    within IPE_GRAD_RTOL of the plain closed form and of autograd, on
+    IPE_EDGES and at the cell's shapes; then, at the cell's shapes, the
+    median of 10 timed runs of each beside its plain version, the kernel
+    alone from a profiler trace and its bound (bytes over the memory
+    rate). Returns the worst errors and the timings by (rows, dtype)."""
+    from nerf_hugs_torch.core import coord
+    from nerf_hugs_torch.ops import ipe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2300)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for basis_key, lo, hi in IPE_EDGES:
+        mean, var = ipe_inputs(torch, IPE_EDGE_N, basis_key, gen, dev, lo,
+                               hi, specials=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            same, err = ipe_fwd_error(
+                torch, ipe.ipe_fwd(mean, var, lo, hi, dtype),
+                ipe.integrated_pos_enc_plain(mean, var, lo, hi, dtype))
+            check(same, f"ipe_fwd differs from its plain version at "
+                        f"{basis_key}, degrees [{lo}, {hi}), {dtype}, "
+                        f"ragged n with the cap's edges: max_abs {err}")
+            worst["fwd"] = max(worst["fwd"], err)
+        print(f"check ipe_fwd, {IPE_EDGE_N} rows of {basis_key} at degrees "
+              f"[{lo}, {hi}) with the cap's edges, inf and NaN: bit for bit "
+              f"in float32 and bfloat16", flush=True)
+    lo, hi = IPE_DEGREES
+    timings = {}
+    for n in IPE_ROWS:
+        mean, var = ipe_inputs(torch, n, IPE_BASIS, gen, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            fwd = lambda: ipe.ipe_fwd(mean, var, lo, hi, dtype)
+            plain = lambda: ipe.integrated_pos_enc_plain(mean, var, lo, hi,
+                                                         dtype)
+            out = fwd()
+            same, err = ipe_fwd_error(torch, out, plain())
+            check(same, f"ipe_fwd differs from its plain version at {n} "
+                        f"rows, {dtype}: max_abs {err}")
+            g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            bwd = lambda: ipe.ipe_bwd(mean, var, g, lo, hi)
+            got = bwd()
+            m = mean.clone().requires_grad_(True)
+            v = var.clone().requires_grad_(True)
+            coord.integrated_pos_enc(m, v, lo, hi).to(dtype).backward(g)
+            closed = ipe.integrated_pos_enc_grad_plain(mean, var, g, lo, hi)
+            rel = ipe_grad_error(zip(got, closed))
+            rel_auto = ipe_grad_error(zip(got, (m.grad, v.grad)))
+            del m, v
+            check(max(rel, rel_auto) <= IPE_GRAD_RTOL,
+                  f"ipe_bwd at {n} rows, {dtype}: {rel} against the closed "
+                  f"form, {rel_auto} against autograd")
+            worst["fwd"] = max(worst["fwd"], err)
+            worst["bwd"] = max(worst["bwd"], rel, rel_auto)
+            name = str(dtype).split(".")[-1]
+            t = {"fwd": median_ms(fwd), "fwd_plain": median_ms(plain),
+                 "fwd_alone": device_ms(torch, fwd, "ipe_fwd_kernel"),
+                 "bwd": median_ms(bwd),
+                 "bwd_plain": median_ms(
+                     lambda: ipe.integrated_pos_enc_grad_plain(
+                         mean, var, g, lo, hi)),
+                 "bwd_alone": device_ms(torch, bwd, "ipe_bwd_kernel")}
+            fwd_bytes = nbytes(mean, var, out)
+            bwd_bytes = nbytes(mean, var, g, *got)
+            t["fwd_bound_ms"], t["fwd_bound_by"] = bound(fwd_bytes, 0)
+            t["bwd_bound_ms"], t["bwd_bound_by"] = bound(bwd_bytes, 0)
+            timings[(n, name)] = t
+            print(f"check ipe, {n} rows x {mean.shape[1]}, degrees [{lo}, "
+                  f"{hi}), {name}: forward bit for bit (max_abs {err:.3e}); "
+                  f"kernel {t['fwd']:.4f} ms (alone {_ms(t['fwd_alone'])}), "
+                  f"plain {t['fwd_plain']:.4f} ms, bound "
+                  f"{t['fwd_bound_ms']:.4f} ms ({fwd_bytes / 1e6:.1f} MB); "
+                  f"gradient rel {rel:.3e} (closed form), {rel_auto:.3e} "
+                  f"(autograd), kernel {t['bwd']:.4f} ms (alone "
+                  f"{_ms(t['bwd_alone'])}), plain {t['bwd_plain']:.4f} ms, "
+                  f"bound {t['bwd_bound_ms']:.4f} ms "
+                  f"({bwd_bytes / 1e6:.1f} MB)", flush=True)
+            del out, g, got, closed
+        del mean, var
+        torch.cuda.empty_cache()
+    return worst, timings
+
+
 def small_model_phase(torch, tmp, dev, variant: str):
     """A small model through the kernels on the card vs the same weights
     through the plain versions on the CPU."""
@@ -921,7 +1081,9 @@ def small_model_phase(torch, tmp, dev, variant: str):
 
 
 # {kernel: its launch counter in nerf_hugs_torch.utils.trace}: the hash-grid
-# wrappers count their d = 3 and d = 2 kernels apart.
+# wrappers count their d = 3 and d = 2 kernels apart. The encoding kernels of
+# ops/ipe.py, which every Mip-NeRF 360 run launches, are read apart (phases
+# 4b and 14).
 LAUNCH_COUNTERS = {
     "hashgrid_fwd": "hashgrid_fwd.launches",
     "hashgrid_bwd": "hashgrid_bwd.launches",
@@ -1882,7 +2044,8 @@ def mip_categorize(prof, steps: int) -> dict:
 
 def mip_train(torch, flags: list, data_dir: str, save_dir: str, tag: str,
               steps: int, finetune_steps: int = 0, profile: bool = False):
-    """train_phase on gin flags (no ported kernel may launch); with
+    """train_phase on gin flags (no ported kernel of LAUNCH_COUNTERS may
+    launch); with
     `profile`, a torch.profiler window over MIP_WINDOW's train steps,
     whose device ms per step, wall ms per step (host clock, synchronised
     at both ends) and busy share (device over wall) are printed and
@@ -1993,9 +2156,11 @@ def mip_micro_phase(torch, dev):
     """Phase 14b's passes outside the GEMMs at kubric_1024_base's shapes,
     each timed alone (median of 10, CUDA events): max_dilate_weights at
     the second proposal level ([16384, 65] endpoints, its [16384, 193, 64]
-    mask), and the lift + integrated positional encoding of the NerfMLP
-    ([16384, 32] samples) and of the PropMLP ([16384, 64])."""
+    mask), and the lift + integrated positional encoding (the kernel of
+    ops/ipe.py, in fp32 as this gin computes) of the NerfMLP ([16384, 32]
+    samples) and of the PropMLP ([16384, 64])."""
     from nerf_hugs_torch.core import coord, geopoly, stepfun
+    from nerf_hugs_torch.ops import ipe as ipe_ops
     gen = torch.Generator(device=dev).manual_seed(3)
     rays = MIP_RAYS
     t = torch.sort(torch.rand(rays, 65, generator=gen, device=dev),
@@ -2013,8 +2178,9 @@ def mip_micro_phase(torch, dev):
         a = 0.01 * torch.randn(rays, samples, 3, 3, generator=gen,
                                device=dev)
         cov = a @ a.transpose(-1, -2)
-        ipe[name] = median_ms(lambda: coord.integrated_pos_enc(
-            *coord.lift_and_diagonalize(mean, cov, basis), 0, 12))
+        ipe[name] = median_ms(lambda: ipe_ops.integrated_pos_enc(
+            *coord.lift_and_diagonalize(mean, cov, basis), 0, 12,
+            torch.float32))
     print(f"mipnerf360 passes at kubric_1024_base's shapes: "
           f"max_dilate_weights {dilate:.3f} ms ([16384, 65] -> [16384, 193] "
           f"endpoints); lift + IPE {ipe['NerfMLP']:.3f} ms (NerfMLP, "
@@ -4112,6 +4278,7 @@ def main() -> None:
         worst_2d, timings_2d = mask_kernel_phase(torch, hashgrid,
                                                  hashgrid_bwd, dev)
         fused_worst, fused_timings = fused_mlp_phase(torch, fused_mlp, dev)
+        ipe_worst, ipe_timings = ipe_phase(torch, dev)
         done("1-4")
         # The writers start after the kernels line's timings, which their
         # CPU load would disturb.
@@ -4181,7 +4348,21 @@ def main() -> None:
         sam_card_phase(torch, dev)
         hugs_phase(torch, tmp, dev)
         done("13")
+        ipe_names = {"fwd": "ipe.launches", "bwd": "ipe_bwd.launches"}
+        ipe_before = {k: trace.counters().get(c, 0)
+                      for k, c in ipe_names.items()}
         mip_phase(torch, tmp, scene, distractor, phototourism, dev)
+        ipe_launches = {k: trace.counters().get(c, 0) - ipe_before[k]
+                        for k, c in ipe_names.items()}
+        # Every shipped gin stops the levels' gradient (stop_level_grad), so
+        # the encoding's inputs never require one.
+        check(ipe_launches["fwd"] > 0 and ipe_launches["bwd"] == 0,
+              f"the Mip-NeRF 360 runs launched ipe_fwd "
+              f"{ipe_launches['fwd']} times (some expected) and ipe_bwd "
+              f"{ipe_launches['bwd']} (none expected)")
+        print(f"check Mip-NeRF 360 runs: ipe_fwd launched "
+              f"{ipe_launches['fwd']} times, ipe_bwd "
+              f"{ipe_launches['bwd']}", flush=True)
         done("14")
         vanilla_phase(torch, tmp, scene, phototourism, dev)
         done("15")
@@ -4225,6 +4406,7 @@ def main() -> None:
     head = fused_timings[("field mlp_head", "bfloat16")]
     head_f32 = fused_timings[("field mlp_head", "float32")]
     acc = accum_timings[81]
+    ipe_row = ipe_timings[(IPE_ROWS[0], "bfloat16")]
     print(json.dumps({"kernels": [
         {"name": "hashgrid_fwd", "route": "cuda",
          "source": "nerf_hugs_torch/csrc/hashgrid.cu",
@@ -4283,7 +4465,22 @@ def main() -> None:
          "bound_ms": mask["bwd_bound_ms"],
          "bound_by": mask["bwd_bound_by"],
          "library_ms": mask["bwd_library"]},
-    ]}))
+    ] + [
+        {"name": f"ipe_{k}", "route": "cuda",
+         "source": "nerf_hugs_torch/csrc/ipe.cu",
+         "replaces": "none (XLA fuses nerf_hugs_tpu/core/coord.py:81)",
+         "launches": ipe_launches[k],
+         "max_abs_err": ipe_worst[k] if k == "fwd" else None,
+         "max_rel_err": ipe_worst[k] if k == "bwd" else None,
+         "ms": ipe_row[k],
+         "plain_ms": ipe_row[f"{k}_plain"],
+         "bound_ms": ipe_row[f"{k}_bound_ms"],
+         "bound_by": ipe_row[f"{k}_bound_by"], "library_ms": None,
+         "shapes": {f"{n}x{dt}": {"ms": t[k], "alone_ms": t[f"{k}_alone"],
+                                  "plain_ms": t[f"{k}_plain"],
+                                  "bound_ms": t[f"{k}_bound_ms"]}
+                    for (n, dt), t in ipe_timings.items()}}
+        for k in ("fwd", "bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,8 @@
 Twin of nerf_hugs_tpu/models/mlp.py (MipNeRF360/internal/models.py:
 360-560, 651-675). PosEncMLP: Gaussians (optionally contracted by
 linearization) -> lifted onto a geodesic basis and diagonalized ->
-integrated positional encoding -> density trunk with skip concatenations
+integrated positional encoding (ops/ipe.py: a kernel on the card, written
+in the compute dtype) -> density trunk with skip concatenations
 -> bottleneck -> [viewdir encoding | GLO] -> colour head, and NeRF-W's
 transient head (transient density, colour, uncertainty) off the same
 bottleneck.
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from nerf_hugs_torch.configs import config as cfg
 from nerf_hugs_torch.core import coord, geopoly
+from nerf_hugs_torch.ops import ipe
 
 
 def _he_uniform(d_in: int, d_out: int,
@@ -168,10 +170,10 @@ class PosEncMLP(nn.Module):
             means, covs = coord.track_linearize(self.warp_fn, means, covs)
         lifted_means, lifted_vars = coord.lift_and_diagonalize(
             means, covs, self.pos_basis_t)
-        feats = coord.integrated_pos_enc(lifted_means, lifted_vars,
-                                         c.min_deg_point, c.max_deg_point)
+        feats = ipe.integrated_pos_enc(lifted_means, lifted_vars,
+                                       c.min_deg_point, c.max_deg_point, cdt)
 
-        x = _run_stack(self, feats.to(cdt), self.trunk, c.skip_layer,
+        x = _run_stack(self, feats, self.trunk, c.skip_layer,
                        self.net_activation, cdt)
         raw_density = dense(x, self.density_head)[..., 0].float()
         if density_noise is not None:

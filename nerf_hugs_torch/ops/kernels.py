@@ -45,6 +45,12 @@ SIGNATURES = {
     "fused_mlp_fwd": [_vp, _vp, _vp, _i32, _i64, _vp, _i32, _vp],
     # (v0, v1, v2, v3, w, w row stride, out, n, stream)
     "planar_accum": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _i64, _vp],
+    # (mean, var, out, n, d, num_deg, min_deg, dtype 0 = float32 /
+    #  1 = bfloat16, stream)
+    "ipe_fwd": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp],
+    # (mean, var, grad_out, grad_mean, grad_var, n, d, num_deg, min_deg,
+    #  grad_out's dtype, stream)
+    "ipe_bwd": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp],
 }
 
 _lib: Optional[types.SimpleNamespace] = None
