@@ -3,10 +3,13 @@ against the plain reference's, from the same initial parameters, rays and
 generator seed.
 
 The reference recasts every ray of the checked batches from the scene's
-camera files (the data layer is judged by its rays and colours), then
-trains its own model on its own rays for as many steps. Compared:
+files (the data layer is judged by its rays, pixel fields and colours),
+then trains its own model on its own rays for as many steps. Compared:
 
-    data_gap         largest absolute gap of a ray field or colour
+    data_gap         largest absolute gap of a ray field (RAY_FIELDS),
+                     a pixel field (PIXEL_FIELDS: the pixel's normalised
+                     centre, the image's embedding index, the static
+                     mask), a colour, or a loss weight from 1
     loss_gap         largest relative gap of a step's loss
     grad_norm_gap    worst leaf: |norm(program's first gradient as Adam
                      took it) - norm(reference's)| over the larger of the
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from benchmark import weights as weights_lib
-from benchmark.harness import RAY_FIELDS, norms
+from benchmark.harness import PIXEL_FIELDS, RAY_FIELDS, norms
 from benchmark.reference import cameras, common
 
 NUMBERS = ("data_gap", "loss_gap", "grad_norm_gap", "change_norm_gap",
@@ -42,25 +45,29 @@ CHANGE_FLOOR = 1e-3
 
 
 def pixels(rays: Dict[str, torch.Tensor], width: int, height: int):
-    """(camera, x, y) integer arrays of a batch's rays."""
+    """(camera, x, y) integer arrays of a batch's rays: the nearest pixel
+    of each, inside the image (data_gap then reads how far off it was)."""
     pc = rays["pix_coords"].double().numpy()
-    x = np.rint(pc[:, 0] * width - 0.5).astype(np.int64)
-    y = np.rint(pc[:, 1] * height - 0.5).astype(np.int64)
+    x = np.rint(pc[:, 0] * width - 0.5).astype(np.int64).clip(0, width - 1)
+    y = np.rint(pc[:, 1] * height - 0.5).astype(np.int64).clip(0, height - 1)
     return rays["cam_idx"].numpy()[:, 0].astype(np.int64), x, y
 
 
+def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.to(b.device).double() - b.double()).abs().max())
+
+
 def recast(scene: cameras.KubricScene, entry: dict, device):
-    """The reference's rays and colours of a checked batch, and the data
-    gap of the program's."""
+    """The reference's rays (RAY_FIELDS and PIXEL_FIELDS) and colours of a
+    checked batch, and the data gap of the program's."""
     h, w = scene.images[0].shape[:2]
     cam, x, y = pixels(entry["rays"], w, h)
     ref = scene.rays(cam, x, y, device)
-    gap = float((entry["rgb"].to(device) - ref["rgb"]).abs().max())
-    for k in RAY_FIELDS:
-        gap = max(gap, float((entry["rays"][k].to(device)
-                              - ref[k]).abs().max()))
-    gap = max(gap, float((entry["rays"]["lossmult"] - 1).abs().max()))
-    return {k: ref[k] for k in RAY_FIELDS}, ref["rgb"], gap
+    fields = RAY_FIELDS + PIXEL_FIELDS
+    gap = max([_gap(entry["rgb"], ref["rgb"]),
+               _gap(entry["rays"]["lossmult"], torch.ones(1))]
+              + [_gap(entry["rays"][k], ref[k]) for k in fields])
+    return {k: ref[k] for k in fields}, ref["rgb"], gap
 
 
 def train_reference(module, values: dict, params, batches, seed: int,

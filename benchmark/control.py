@@ -45,7 +45,8 @@ class ReferenceTrainee:
         self.make = make
 
     def step(self, batch, train_frac):
-        rays = {k: getattr(batch.rays, k) for k in harness.RAY_FIELDS}
+        rays = {k: getattr(batch.rays, k)
+                for k in harness.RAY_FIELDS + harness.PIXEL_FIELDS}
         loss, grads = self.trainer.step(rays, batch.rgb[..., :3], self.gen)
         if self.grads is None:
             self.grads = grads

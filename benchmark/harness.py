@@ -29,8 +29,10 @@ from benchmark import scene as scene_lib
 from benchmark import weights as weights_lib
 from benchmark.manifest import Manifest
 
-# The batch fields the program's loader fills and the reference recasts.
+# The batch fields the program's loader fills and the reference recasts:
+# the rays, and each ray's pixel centre, image index and static mask.
 RAY_FIELDS = ("origins", "directions", "viewdirs", "radii", "near", "far")
+PIXEL_FIELDS = ("pix_coords", "embed_idx", "static_mask")
 
 
 def dotted(config, key: str):
@@ -176,7 +178,8 @@ class Run:
         self.data_dir = self._timed(
             "scene_s", lambda: scene_lib.write_kubric_scene(
                 os.path.join(self.tmp, "scene"), self.seed, s["num_train"],
-                s["size"], s["factor"], s["world_scale"]))
+                s["size"], s["factor"], s["world_scale"],
+                s.get("static_masks", False)))
         self.config = load_config(self.doc, self.tmp, self.data_dir,
                                   self.seed)
         if self.config.factor != s["factor"]:
@@ -210,8 +213,8 @@ class Run:
         def record(step, batch, stats):
             entry = {"loss": stats["loss"],
                      "rays": {k: getattr(batch.rays, k).cpu()
-                              for k in RAY_FIELDS + ("pix_coords",
-                                                     "cam_idx", "lossmult")},
+                              for k in RAY_FIELDS + PIXEL_FIELDS
+                              + ("cam_idx", "lossmult")},
                      "rgb": batch.rgb.cpu()}
             if step == 1:
                 entry["grad_norms"] = norms(self.trainee.first_gradients())

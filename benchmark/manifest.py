@@ -10,6 +10,17 @@ comparison) and the reader of each metric it reports.
 
 A new configuration, traffic mix, cell or metric is a new file and an
 entry in BENCHMARK.json; no file here changes.
+
+A traffic file's `scene` gives the capture's num_train, size, factor and
+world_scale, and with "static_masks": true HuGS's static mask of each
+train frame (0 on its distractor square). A reference's `loss(params,
+rays, rgb, train_frac, generator, values, precision)` is handed, for each
+ray, the float32 [n, k] fields origins, directions, viewdirs, radii, near,
+far (harness.RAY_FIELDS), pix_coords (the pixel's centre over the image's
+width and height), static_mask (in [0, 1]) and the int32 [n, 1] embed_idx
+(the image's place in the train split) (harness.PIXEL_FIELDS), all recast
+from the scene's files; it reads those it needs. check.py's data_gap takes
+the program's gap from the recast in every one of them and in the colours.
 """
 
 from __future__ import annotations

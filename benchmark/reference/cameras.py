@@ -1,7 +1,8 @@
 """Plain rays of a kubric capture: its camera files read as the kubric
 layout defines them, the OpenCV lens inverted by Newton's method, and a
 pixel's ray with the base radius of its cone (Mip-NeRF 360's
-camera_utils), in float64 and then float32.
+camera_utils), in float64 and then float32; beside each ray its image's
+index, its pixel's normalised centre and its static mask.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from PIL import Image
 
 # The kubric loader widens the shipped far plane by this factor.
 FAR_SCALE = 1.2
+# HuGS's static masks of the train frames: MASK_DIR/{id}.png, 1 static.
+MASK_DIR = "static_masks"
 
 
 def camera_from_json(path: str, factor: int):
@@ -89,8 +92,18 @@ def rays_from_plane(c2w, plane, plane_dx, plane_dy):
     return origins, d, viewdirs, radii
 
 
+def read_png(path: str) -> np.ndarray:
+    """[h, w, c] float32 in [0, 1] of an 8-bit PNG."""
+    with Image.open(path) as im:
+        a = np.asarray(im, np.float32) / 255.0
+    return a if a.ndim == 3 else a[..., None]
+
+
 class KubricScene:
-    """The train split of a kubric capture on disk, read plainly."""
+    """The train split of a kubric capture on disk, read plainly. A
+    frame's embedding index is its place in dataset.json's train_ids (the
+    train split's rows come first); its static mask is MASK_DIR/{id}.png
+    at the image's own size, or ones where the capture has none."""
 
     def __init__(self, root: str, factor: int):
         with open(os.path.join(root, "scene_gt.json")) as f:
@@ -100,7 +113,9 @@ class KubricScene:
         center = np.asarray(scene["center"], np.float64)
         self.near = float(scene["near"])
         self.far = float(scene["far"]) * FAR_SCALE
-        self.pixtocams, self.c2ws, self.lenses, self.images = [], [], [], []
+        self.embed_idxs = np.arange(len(names), dtype=np.int32)
+        self.pixtocams, self.c2ws, self.lenses = [], [], []
+        self.images, self.masks = [], []
         for name in names:
             p2c, c2w, lens = camera_from_json(
                 os.path.join(root, "camera-gt", f"{name}.json"), factor)
@@ -109,17 +124,30 @@ class KubricScene:
             self.pixtocams.append(p2c)
             self.c2ws.append(c2w)
             self.lenses.append(lens)
-            path = os.path.join(root, "rgb", f"{factor}x", f"{name}.png")
-            with Image.open(path) as im:
-                self.images.append(np.asarray(im, np.float32)[..., :3]
-                                   / 255.0)
+            image = read_png(os.path.join(root, "rgb", f"{factor}x",
+                                          f"{name}.png"))[..., :3]
+            self.images.append(image)
+            mask_path = os.path.join(root, MASK_DIR, f"{name}.png")
+            if os.path.exists(mask_path):
+                mask = read_png(mask_path)[..., :1]
+                if mask.shape[:2] != image.shape[:2]:
+                    raise ValueError(f"{mask_path} is {mask.shape[:2]}, its "
+                                     f"image {image.shape[:2]}")
+            else:
+                mask = np.ones(image.shape[:2] + (1,), np.float32)
+            self.masks.append(mask)
 
     def rays(self, cam_idx: np.ndarray, x: np.ndarray, y: np.ndarray,
              device) -> dict:
-        """The rays and target colours of pixels (x, y) of cameras cam_idx,
-        as float32 tensors on `device`."""
+        """The rays, pixel fields and target colours of pixels (x, y) of
+        cameras cam_idx, as tensors on `device`: float32, and embed_idx
+        [n, 1] int32. pix_coords are the pixel centres over the image's
+        size, from float32 centres divided in float64 (the loader's
+        dtypes), then float32."""
         out = {k: [] for k in ("origins", "directions", "viewdirs", "radii",
-                               "rgb")}
+                               "rgb", "pix_coords", "static_mask")}
+        centre = lambda a: (a.astype(np.float32) + np.float32(0.5)
+                            ).astype(np.float64)
         order = np.argsort(cam_idx, kind="stable")
         for c in np.unique(cam_idx):
             sel = cam_idx == c
@@ -129,8 +157,10 @@ class KubricScene:
                 self.c2ws[c], camera_plane(p2c, lens, xs, ys),
                 camera_plane(p2c, lens, xs + 1, ys),
                 camera_plane(p2c, lens, xs, ys + 1))
-            for k, a in zip(out, (o, d, v, r, self.images[c][y[sel],
-                                                             x[sel]])):
+            h, w = self.images[c].shape[:2]
+            pix = np.stack([centre(x[sel]) / w, centre(y[sel]) / h], -1)
+            for k, a in zip(out, (o, d, v, r, self.images[c][y[sel], x[sel]],
+                                  pix, self.masks[c][y[sel], x[sel]])):
                 out[k].append(a)
         inverse = np.empty_like(order)
         inverse[order] = np.arange(len(order))
@@ -139,4 +169,6 @@ class KubricScene:
         n = len(cam_idx)
         rays["near"] = torch.full((n, 1), self.near, device=device)
         rays["far"] = torch.full((n, 1), self.far, device=device)
+        rays["embed_idx"] = torch.tensor(self.embed_idxs[cam_idx][:, None],
+                                         device=device)
         return rays

@@ -4,7 +4,9 @@ layout that the program's kubric loader reads. One lens with small radial
 and tangential distortion for every frame; the cameras ring the origin at
 height 1.2 and radius 2.5 times the world scale, each lifted by a seeded
 jitter, and each train frame carries an opaque square of a seeded colour
-at a seeded place (a distractor).
+at a seeded place (a distractor). With static_masks, each train frame also
+has HuGS's static mask, as the loader reads it (static_masks/{id}.png at
+the image's size, 255 static): 0 on exactly that frame's square.
 """
 
 from __future__ import annotations
@@ -53,10 +55,13 @@ def sphere_color(origins, dirs, radius: float) -> np.ndarray:
 
 
 def write_kubric_scene(root: str, seed: int, num_train: int, size: int,
-                       factor: int, world_scale: float) -> str:
+                       factor: int, world_scale: float,
+                       static_masks: bool = False) -> str:
     """The capture under `root`: num_train frames of size x size at
     rgb/{factor}x/ (the camera's full resolution is size x factor), no
-    test frames; near 0.1, far 2 after the loader's widening."""
+    test frames; near 0.1, far 2 after the loader's widening. The masks
+    take no draw of the seed's: the frames are the same with or without
+    them."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, 7]))
     full = size * factor
     _write_json(os.path.join(root, "scene_gt.json"), {
@@ -68,6 +73,9 @@ def write_kubric_scene(root: str, seed: int, num_train: int, size: int,
                 {"val_ids": []})
     image_dir = os.path.join(root, "rgb", f"{factor}x")
     os.makedirs(image_dir, exist_ok=True)
+    mask_dir = os.path.join(root, cameras.MASK_DIR)
+    if static_masks:
+        os.makedirs(mask_dir, exist_ok=True)
     plane = dx = dy = None
     for i, name in enumerate(names):
         theta = 2 * np.pi * i / num_train
@@ -95,4 +103,8 @@ def write_kubric_scene(root: str, seed: int, num_train: int, size: int,
         image[y0:y0 + sz, x0:x0 + sz] = rng.random(3)
         Image.fromarray(np.round(image * 255).astype(np.uint8)).save(
             os.path.join(image_dir, f"{name}.png"))
+        if static_masks:
+            mask = np.full((size, size), 255, np.uint8)
+            mask[y0:y0 + sz, x0:x0 + sz] = 0
+            Image.fromarray(mask).save(os.path.join(mask_dir, f"{name}.png"))
     return root

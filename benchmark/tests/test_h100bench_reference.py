@@ -64,8 +64,8 @@ def test_recast_rays_equal_the_loaders(root, tmp_path):
                                          tmp_path)
     try:
         entry = {"rays": {k: getattr(batch.rays, k) for k in
-                          harness.RAY_FIELDS + ("pix_coords", "cam_idx",
-                                                "lossmult")},
+                          harness.RAY_FIELDS + harness.PIXEL_FIELDS
+                          + ("cam_idx", "lossmult")},
                  "rgb": batch.rgb}
         scene = cameras.KubricScene(run.data_dir, 2)
         _, rgb, gap = check.recast(scene, entry, "cpu")
